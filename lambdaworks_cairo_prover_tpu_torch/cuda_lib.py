@@ -1,0 +1,124 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+The sources under ``csrc/`` are compiled at first use, with ``nvcc`` for
+Hopper (``sm_90a``), into one shared library with a plain C interface that
+is loaded with ctypes.  The library goes into ``_build/`` inside the package
+(listed in ``.gitignore``) under a name derived from the sources and flags,
+so an edited source is rebuilt and a built one is reused.  Nothing is built
+when this module is imported: :func:`library` builds on its first call,
+which only a launcher of a CUDA tensor makes.
+
+Each C entry point takes device pointers, sizes and the CUDA stream as
+plain integers and returns ``cudaGetLastError()`` after its launch;
+:func:`check` turns a nonzero code into an exception.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+PKG_DIR = os.path.dirname(os.path.abspath(__file__))
+CSRC_DIR = os.path.join(PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(PKG_DIR, "_build")
+SOURCES = ("field_ops.cu", "ntt.cu")
+HEADERS = ("field.cuh",)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+_P = ctypes.c_void_p
+_LL = ctypes.c_longlong
+_I = ctypes.c_int
+_SIGNATURES = {
+    "lcp_mont_mul": [_P, _LL, _LL, _LL, _P, _LL, _LL, _LL, _P, _LL, _P],
+    "lcp_add_sub": [_I, _P, _LL, _LL, _LL, _P, _LL, _LL, _LL, _P, _LL, _P],
+    "lcp_ntt_dif_stage": [_P, _LL, _I, _I, _P, _LL, _P],
+    "lcp_ntt_dif_local": [_P, _LL, _I, _P, _LL, _P],
+}
+
+
+class KernelCompileError(RuntimeError):
+    """nvcc is missing or refused the sources."""
+
+
+class KernelLaunchError(RuntimeError):
+    """A kernel launch returned a CUDA error code."""
+
+
+_lock = threading.Lock()
+_state: dict = {}  # "lib": ctypes.CDLL, "build": dict of build facts
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    fallback = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(fallback):
+        return fallback
+    raise KernelCompileError("nvcc not found (looked on PATH and in "
+                           "/usr/local/cuda/bin); the CUDA kernels cannot "
+                           "be built")
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES + HEADERS:
+        with open(os.path.join(CSRC_DIR, name), "rb") as f:
+            h.update(name.encode() + b"\0" + f.read())
+    return h.hexdigest()[:16]
+
+
+def build() -> dict:
+    """Compile the kernels if needed; returns the library path, whether it
+    was compiled in this call, the seconds taken and nvcc's report."""
+    tag = _source_hash()
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    so_path = os.path.join(BUILD_DIR, f"liblcp_kernels_{tag}.so")
+    log_path = so_path + ".log"
+    if os.path.exists(so_path):
+        log = open(log_path).read() if os.path.exists(log_path) else ""
+        return {"path": so_path, "compiled": False, "seconds": 0.0, "log": log}
+    tmp = f"{so_path}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", CSRC_DIR, "-o", tmp,
+           *[os.path.join(CSRC_DIR, s) for s in SOURCES]]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise KernelCompileError(f"nvcc failed ({proc.returncode}):\n{log}")
+    with open(log_path, "w") as f:
+        f.write(log)
+    os.replace(tmp, so_path)
+    return {"path": so_path, "compiled": True, "seconds": seconds, "log": log}
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    with _lock:
+        if "lib" not in _state:
+            info = build()
+            lib = ctypes.CDLL(info["path"])
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _state["build"] = info
+            _state["lib"] = lib
+        return _state["lib"]
+
+
+def build_info() -> dict:
+    """Facts about the build that :func:`library` loaded ({} before)."""
+    return dict(_state.get("build", {}))
+
+
+def check(code: int, what: str) -> None:
+    if code != 0:
+        raise KernelLaunchError(f"{what}: CUDA error {code}")

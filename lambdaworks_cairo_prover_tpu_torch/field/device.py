@@ -1,0 +1,251 @@
+"""Stark252 arithmetic over 16x16-bit limb tensors (PyTorch).
+
+Every function takes int32 tensors whose LEADING axis is the limb axis
+(shape ``(16, ...)``, little-endian 16-bit limbs, values < 2^16) — the JAX
+package's layout, so arrays pass between the two packages unchanged.
+Elements are in Montgomery form (R = 2^256) and canonical (< p) unless noted.
+
+Dispatch rule: a CUDA tensor goes to the hand-written kernels of
+``cuda_field`` (mul -> H1, add/sub/neg -> H2), whatever its size; a CPU
+tensor goes to their plain PyTorch versions.  There is no fallback from one
+to the other.  Functions that make a tensor from nothing take its device.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import cuda_field as cf
+from .params import N_LIMBS, P, R, R2
+
+_I32 = torch.int32
+
+# ---------------------------------------------------------------------------
+# Host <-> tensor conversion
+# ---------------------------------------------------------------------------
+
+
+def from_ints(values, mont: bool = True, *, device) -> torch.Tensor:
+    """Python ints -> (16, len(values)) int32 limb tensor on ``device``.
+
+    If ``mont`` the values are converted to Montgomery form on the host."""
+    vals = [(v * R) % P if mont else v % P for v in values]
+    buf = b"".join(v.to_bytes(32, "little") for v in vals)
+    limbs = np.frombuffer(buf, dtype=np.uint16).reshape(len(vals), N_LIMBS)
+    arr = np.ascontiguousarray(limbs.T.astype(np.int32))
+    return torch.from_numpy(arr).to(device)
+
+
+def to_ints(limbs, mont: bool = True) -> list:
+    """(16, ...) limbs -> flat list of python ints (out of Montgomery form)."""
+    if isinstance(limbs, torch.Tensor):
+        limbs = limbs.detach().cpu().numpy()
+    arr = np.asarray(limbs).astype(np.uint16).reshape(N_LIMBS, -1).T.copy()
+    out = []
+    r_inv = pow(R, P - 2, P)
+    for row in arr:
+        v = int.from_bytes(row.tobytes(), "little")
+        out.append((v * r_inv) % P if mont else v)
+    return out
+
+
+def from_int(value: int, mont: bool = True, *, device) -> torch.Tensor:
+    """Single python int -> shape (16, 1) limb tensor."""
+    return from_ints([value], mont=mont, device=device)
+
+
+def to_int(limbs, mont: bool = True) -> int:
+    return to_ints(limbs, mont=mont)[0]
+
+
+def zeros(shape=(), *, device) -> torch.Tensor:
+    return torch.zeros((N_LIMBS,) + tuple(shape), dtype=_I32, device=device)
+
+
+def ones(shape=(), *, device) -> torch.Tensor:
+    """Montgomery-form one (= R mod p) broadcast to the batch shape."""
+    one = from_int(1, device=device).reshape((N_LIMBS,) + (1,) * len(tuple(shape)))
+    return one.expand((N_LIMBS,) + tuple(shape))
+
+
+# ---------------------------------------------------------------------------
+# Elementwise arithmetic (kernel on CUDA, plain version on CPU)
+# ---------------------------------------------------------------------------
+
+
+def _on_cpu(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.device.type == "cpu" and b.device.type == "cpu"
+
+
+def add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Modular addition of canonical limb tensors."""
+    return cf.add_plain(a, b) if _on_cpu(a, b) else cf.add_sub_mod(a, b, "add")
+
+
+def sub(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Modular subtraction a - b."""
+    return cf.sub_plain(a, b) if _on_cpu(a, b) else cf.add_sub_mod(a, b, "sub")
+
+
+def neg(a: torch.Tensor) -> torch.Tensor:
+    return sub(zeros((1,) * (a.dim() - 1), device=a.device), a)
+
+
+def mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Montgomery product REDC(a*b); canonical output."""
+    return cf.mul_plain(a, b) if _on_cpu(a, b) else cf.mont_mul(a, b)
+
+
+def from_mont(a: torch.Tensor) -> torch.Tensor:
+    """Montgomery form -> canonical residue limbs (REDC with 1)."""
+    one = from_int(1, mont=False, device=a.device)
+    return mul(a, one.reshape((N_LIMBS,) + (1,) * (a.dim() - 1)))
+
+
+def to_mont(a: torch.Tensor) -> torch.Tensor:
+    """Canonical residue limbs -> Montgomery form (multiply by R^2)."""
+    r2 = from_int(R2, mont=False, device=a.device)
+    return mul(a, r2.reshape((N_LIMBS,) + (1,) * (a.dim() - 1)))
+
+
+def is_zero(a: torch.Tensor) -> torch.Tensor:
+    """Boolean mask over the batch shape: element == 0."""
+    return (a == 0).all(dim=0)
+
+
+def eq(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return (a == b).all(dim=0)
+
+
+def select(mask: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Elementwise where over the batch shape (mask broadcast against limbs)."""
+    return torch.where(mask.unsqueeze(0), a, b)
+
+
+# ---------------------------------------------------------------------------
+# Exponentiation / inversion
+# ---------------------------------------------------------------------------
+
+
+def pow_u64(a: torch.Tensor, e: int) -> torch.Tensor:
+    """Power with a python-int exponent (square-and-multiply)."""
+    if e == 0:
+        return ones(a.shape[1:], device=a.device).contiguous()
+    result = None
+    base = a
+    while e:
+        if e & 1:
+            result = base if result is None else mul(result, base)
+        e >>= 1
+        if e:
+            base = mul(base, base)
+    return result
+
+
+def inv(a: torch.Tensor) -> torch.Tensor:
+    """Fermat inverse a^(p-2), left to right; 0 maps to 0."""
+    bits = bin(P - 2)[2:]  # MSB first; the leading 1 is the initial acc
+    acc = a
+    for bit in bits[1:]:
+        acc = mul(acc, acc)
+        if bit == "1":
+            acc = mul(acc, a)
+    return acc
+
+
+def _chunk_len(n: int) -> int:
+    """Scan length for the chunked Montgomery tricks: about sqrt(n), in
+    [2, 256] (only the schedule depends on it, never the values)."""
+    return max(2, min(256, 1 << ((max(n, 1) - 1).bit_length() + 1) // 2))
+
+
+def _chunk_scan(x: torch.Tensor, chunk: int):
+    """(16, n) -> list over t < chunk of (16, k) inclusive prefix products
+    within each of k = ceil(n/chunk) chunks, and the padded (16, chunk, k)
+    chunk-major input (padding is Montgomery one)."""
+    n = x.shape[1]
+    k = -(-n // chunk)
+    pad = k * chunk - n
+    xs = x
+    if pad:
+        xs = torch.cat([x, ones((pad,), device=x.device)], dim=1)
+    xs = xs.reshape(N_LIMBS, k, chunk).transpose(1, 2).contiguous()
+    pre = [xs[:, 0]]
+    for t in range(1, chunk):
+        pre.append(mul(pre[-1], xs[:, t]))
+    return pre, xs
+
+
+def batch_inverse(x: torch.Tensor) -> torch.Tensor:
+    """Montgomery-trick batch inversion along axis 1 of ``x`` (16, n);
+    zeros map to zero (lambdaworks `inplace_batch_inverse`).
+
+    Chunks of about sqrt(n) are scanned in parallel; one Fermat inversion
+    of the chunk totals, then the backward sweep."""
+    n = x.shape[1]
+    if n == 0:
+        return x
+    zmask = is_zero(x)
+    xs = select(zmask, ones((n,), device=x.device), x)
+    chunk = _chunk_len(n)
+    pre, xs = _chunk_scan(xs, chunk)
+    carry = inv(pre[-1])
+    out = [None] * chunk
+    for t in range(chunk - 1, 0, -1):
+        out[t] = mul(carry, pre[t - 1])
+        carry = mul(carry, xs[:, t])
+    out[0] = carry
+    res = torch.stack(out, dim=2).reshape(N_LIMBS, -1)[:, :n]
+    return select(zmask, zeros((n,), device=x.device), res)
+
+
+def prefix_product(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix product along axis 1 of ``x`` (16, n)."""
+    n = x.shape[1]
+    if n <= 1:
+        return x.clone()
+    chunk = _chunk_len(n)
+    pre, _ = _chunk_scan(x, chunk)
+    blocks = torch.stack(pre, dim=2)  # (16, k, chunk)
+    k = blocks.shape[1]
+    if k > 1:
+        incl = prefix_product(pre[-1])  # running product of chunk totals
+        excl = torch.cat([ones((1,), device=x.device), incl[:, :-1]], dim=1)
+        blocks = mul(blocks, excl[:, :, None])
+    return blocks.reshape(N_LIMBS, -1)[:, :n]
+
+
+# ---------------------------------------------------------------------------
+# Power tables
+# ---------------------------------------------------------------------------
+
+
+def _host_powers(base: int, n: int) -> list:
+    vals = [1] * n
+    cur = 1
+    for i in range(1, n):
+        cur = cur * base % P
+        vals[i] = cur
+    return vals
+
+
+def powers(base_int: int, n: int, *, device) -> torch.Tensor:
+    """[1, b, b^2, ..., b^(n-1)] as (16, n) Montgomery limbs on ``device``.
+
+    Up to 1024 entries are built on the host; above that, 2*sqrt(n) host
+    powers b^i (i < s) and b^(s*j) and one device product of the two."""
+    if n <= 0:
+        return zeros((0,), device=device)
+    base_int %= P
+    if n <= 1024:
+        return from_ints(_host_powers(base_int, n), device=device)
+    s = 1 << ((n - 1).bit_length() + 1) // 2
+    k = -(-n // s)
+    small_vals = _host_powers(base_int, s)
+    step = small_vals[-1] * base_int % P  # b^s
+    big_vals = _host_powers(step, k)
+    small = from_ints(small_vals, device=device)
+    big = from_ints(big_vals, device=device)
+    prod = mul(small[:, None, :], big[:, :, None])  # (16, k, s)
+    return prod.reshape(N_LIMBS, -1)[:, :n]

@@ -1,0 +1,184 @@
+"""Batched Keccak-256 in plain PyTorch: keccak-f[1600] over a batch of
+messages at once (Merkle leaves and nodes, grinding nonces).
+
+The state is a (25, n) int64 tensor, one row per 64-bit lane (lane x + 5y),
+each round a few whole-state ops: theta and chi as rolls over a (5, 5, n)
+view, rho as one per-lane shift, pi as one row gather.  int64 is
+two's-complement, so xor/and/not/left shift act on the 64 bits as on u64;
+a logical right shift masks after the arithmetic one.
+
+Digests are (n, 4) int64 tensors: lane j of the final state, i.e. digest
+bytes 8j..8j+8 little-endian (the JAX package keeps the same bytes as (n, 8)
+uint32 words).  This is not yet a CUDA kernel: on a CUDA tensor the ops run
+as PyTorch's own kernels.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..field.params import N_LIMBS
+
+_RC = [
+    0x0000000000000001, 0x0000000000008082, 0x800000000000808A, 0x8000000080008000,
+    0x000000000000808B, 0x0000000080000001, 0x8000000080008081, 0x8000000000008009,
+    0x000000000000008A, 0x0000000000000088, 0x0000000080008009, 0x000000008000000A,
+    0x000000008000808B, 0x800000000000008B, 0x8000000000008089, 0x8000000000008003,
+    0x8000000000008002, 0x8000000000000080, 0x000000000000800A, 0x800000008000000A,
+    0x8000000080008081, 0x8000000000008080, 0x0000000080000001, 0x8000000080008008,
+]
+
+_ROT = [
+    [0, 36, 3, 41, 18],
+    [1, 44, 10, 45, 2],
+    [62, 6, 43, 15, 61],
+    [28, 55, 25, 21, 56],
+    [27, 20, 39, 8, 14],
+]
+
+_RATE_LANES = 17  # 136 bytes
+_MAX_POS = (1 << 63) - 1
+
+
+def _signed(v: int) -> int:
+    """u64 -> the int64 with the same bits."""
+    return v - (1 << 64) if v >= 1 << 63 else v
+
+
+_RC_I64 = [_signed(v) for v in _RC]
+# rho amount of lane i, and pi: b[_PI_DST[i]] = rotl(a[i], _RHO[i])
+_RHO = [_ROT[i % 5][i // 5] for i in range(25)]
+_PI_DST = [(i // 5) + 5 * ((2 * (i % 5) + 3 * (i // 5)) % 5) for i in range(25)]
+_PI_SRC = [0] * 25
+for _i, _d in enumerate(_PI_DST):
+    _PI_SRC[_d] = _i
+
+
+def _shr(x: torch.Tensor, k) -> torch.Tensor:
+    """Logical right shift of int64 bits by k in [1, 64] (k may be a tensor)."""
+    return ((x >> 1) & _MAX_POS) >> (k - 1)
+
+
+def _keccak_f(state: torch.Tensor) -> torch.Tensor:
+    """keccak-f[1600] on a (25, n) int64 state."""
+    dev = state.device
+    rho = torch.tensor(_RHO, dtype=torch.int64, device=dev)[:, None]
+    rho_r = 64 - rho
+    pi_src = torch.tensor(_PI_SRC, dtype=torch.int64, device=dev)
+    a = state
+    for rc in _RC_I64:
+        a5 = a.reshape(5, 5, -1)  # [y][x]
+        c = a5[0] ^ a5[1] ^ a5[2] ^ a5[3] ^ a5[4]
+        c1 = torch.roll(c, -1, 0)
+        d = torch.roll(c, 1, 0) ^ ((c1 << 1) | _shr(c1, 63))
+        a = (a5 ^ d[None]).reshape(25, -1)
+        rot = (a << rho) | _shr(a, rho_r)
+        b5 = rot.index_select(0, pi_src).reshape(5, 5, -1)
+        a5 = b5 ^ (~torch.roll(b5, -1, 1) & torch.roll(b5, -2, 1))
+        a5[0, 0] ^= rc
+        a = a5.reshape(25, -1)
+    return a
+
+
+def _absorb(lanes: torch.Tensor) -> torch.Tensor:
+    """Pre-padded messages (n, L) int64 lanes, L a multiple of 17 -> (n, 4)."""
+    n, total = lanes.shape
+    state = torch.zeros((25, n), dtype=torch.int64, device=lanes.device)
+    for blk in range(total // _RATE_LANES):
+        block = lanes[:, blk * _RATE_LANES:(blk + 1) * _RATE_LANES]
+        state = state.clone()
+        state[:_RATE_LANES] ^= block.T
+        state = _keccak_f(state)
+    return state[:4].T.contiguous()
+
+
+def _pad_bytes(msg: torch.Tensor) -> torch.Tensor:
+    """(n, len) uint8 messages -> (n, L) int64 lanes with Keccak padding
+    (0x01 ... 0x80, rate 136 bytes)."""
+    n, length = msg.shape
+    total = (length // 136 + 1) * 136
+    buf = torch.zeros((n, total), dtype=torch.uint8, device=msg.device)
+    buf[:, :length] = msg
+    buf[:, length] ^= 0x01
+    buf[:, total - 1] ^= 0x80
+    return buf.view(torch.int64)
+
+
+def felts_to_be_bytes(limbs: torch.Tensor) -> torch.Tensor:
+    """(16, ...) canonical limbs -> (..., 32) uint8, the 32-byte big-endian
+    encoding of each element."""
+    x = torch.movedim(limbs.to(torch.int64), 0, -1)  # (..., 16) LE limbs
+    le = torch.stack([x & 0xFF, x >> 8], dim=-1).reshape(x.shape[:-1] + (32,))
+    return le.flip(-1).to(torch.uint8)
+
+
+def hash_felt_rows(limbs: torch.Tensor, n_cols: int) -> torch.Tensor:
+    """Hash each row of felts: limbs (16, n_rows, n_cols) -> (n_rows, 4).
+
+    lambdaworks `BatchKeccak256Tree` leaf hashing: Keccak256 of the
+    concatenated 32-byte BE encodings of the row's (non-Montgomery)
+    elements."""
+    n_rows = limbs.shape[1]
+    msg = felts_to_be_bytes(limbs).reshape(n_rows, n_cols * 32)
+    return _absorb(_pad_bytes(msg))
+
+
+def hash_felt_leaves(limbs: torch.Tensor) -> torch.Tensor:
+    """Hash single-felt leaves: (16, n) -> (n, 4) (lambdaworks `Keccak256Tree`)."""
+    return hash_felt_rows(limbs[:, :, None], 1)
+
+
+def hash_digest_pairs(digests: torch.Tensor) -> torch.Tensor:
+    """Parent nodes: (2k, 4) -> (k, 4), Keccak256(left || right)."""
+    k = digests.shape[0] // 2
+    msg = digests.reshape(k, 8).contiguous().view(torch.uint8)  # (k, 64)
+    return _absorb(_pad_bytes(msg))
+
+
+def digest_words_to_masked_limbs(digest: torch.Tensor) -> torch.Tensor:
+    """(4,) int64 digest lanes -> (16, 1) RAW (non-Montgomery) limbs of the
+    251-bit-masked big-endian integer: the tensor twin of
+    transcript_to_field (field/host.py::randomness_to_field)."""
+    be = digest.contiguous().view(torch.uint8).to(torch.int64)  # 32 bytes
+    le = be.flip(0)
+    limbs = le[0::2] | (le[1::2] << 8)
+    limbs[15] &= 0x7FF  # clear the top 5 of 256 bits
+    return limbs.to(torch.int32)[:, None]
+
+
+def digest_to_bytes(digest_row) -> bytes:
+    """(4,) int64 lanes -> 32 bytes."""
+    if isinstance(digest_row, torch.Tensor):
+        digest_row = digest_row.detach().cpu().numpy()
+    return np.asarray(digest_row, dtype="<i8").tobytes()
+
+
+def grinding_batch(challenge: bytes, start: int, size: int,
+                   grinding_factor: int, device):
+    """Search the candidate u64 nonces [start, start + size).
+
+    Message = challenge || nonce_le_u64 (40 bytes; reference grinding.rs:21-28);
+    condition: trailing_zeros(first 8 digest bytes read as BE u64) >= factor.
+    Returns (found, index in the batch of the first hit) as 0-d tensors,
+    without waiting for the device."""
+    if start < 0 or start + size > 1 << 63:
+        raise ValueError("nonce batch outside [0, 2^63)")
+    words = np.frombuffer(challenge, dtype="<i8")
+    lanes = torch.zeros((size, _RATE_LANES), dtype=torch.int64, device=device)
+    lanes[:, :4] = torch.from_numpy(words.copy()).to(device)
+    lanes[:, 4] = torch.arange(start, start + size, dtype=torch.int64,
+                               device=device)
+    lanes[:, 5] = 0x01  # byte 40
+    lanes[:, 16] = _signed(0x80 << 56)  # byte 135
+    lane0 = _absorb(lanes)[:, 0]
+    # head = BE u64 of digest bytes 0..7: its bit 8i+k is bit 8(7-i)+k of
+    # lane 0 (LE), so "low f bits of head are 0" is a mask test on lane 0
+    mask = 0
+    for bit in range(min(grinding_factor, 64)):
+        i, k = divmod(bit, 8)
+        mask |= 1 << (8 * (7 - i) + k)
+    ok = (lane0 & _signed(mask)) == 0
+    idx = torch.arange(size, dtype=torch.int64, device=device)
+    first = torch.where(ok, idx, torch.full_like(idx, size)).min()
+    return first < size, first

@@ -1,0 +1,43 @@
+"""Carry arrays between the JAX package and the port.
+
+The JAX package keeps field elements as ``(16, ...)`` uint32 arrays of
+16-bit limbs in Montgomery form; the port keeps the same limbs as int32
+tensors.  Turn a JAX array into numpy with ``np.asarray`` first: this module
+imports no JAX.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .air.trace import TraceTable
+from .field.params import N_LIMBS
+
+
+def limbs_from_numpy(arr: np.ndarray, device) -> torch.Tensor:
+    """(16, ...) uint32 limbs (values < 2^16) -> int32 tensor on ``device``."""
+    arr = np.asarray(arr)
+    if arr.ndim < 1 or arr.shape[0] != N_LIMBS:
+        raise ValueError(f"expected (16, ...) limbs, got shape {arr.shape}")
+    if arr.size and int(arr.max()) >= 1 << 16:
+        raise ValueError("limb values must be < 2^16")
+    return torch.from_numpy(np.ascontiguousarray(arr, dtype=np.int32)).to(device)
+
+
+def limbs_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """(16, ...) int32 limb tensor -> uint32 numpy array (the JAX layout)."""
+    return t.detach().cpu().numpy().astype(np.uint32)
+
+
+def trace_from_numpy(data: np.ndarray, device) -> TraceTable:
+    """A port TraceTable from a JAX TraceTable's ``data``: (16, cols, rows)
+    limbs, or the JAX package's packed (8, cols, rows) layout (limb pairs
+    in one u32)."""
+    data = np.asarray(data, dtype=np.uint32)
+    if data.shape[0] == N_LIMBS // 2:
+        unpacked = np.empty((N_LIMBS,) + data.shape[1:], np.uint32)
+        unpacked[0::2] = data & 0xFFFF
+        unpacked[1::2] = data >> 16
+        data = unpacked
+    return TraceTable(limbs_from_numpy(data, device))

@@ -1,0 +1,256 @@
+"""Prover round computations over whole-domain tensors, cached per
+(AIR shape, trace length, device).
+
+The counterpart of the JAX package's prover/kernels.py as plain eager
+methods: every round works on the whole LDE domain at once (the slice's
+state, unpacked, is about 1 GB, far below the H100's 80 GB), so there are
+no column or row chunks, packed buffers or jit caches.  Domain tables (LDE
+coset values, degree-adjustment powers, zerofier cycle, exemption
+evaluations, boundary zerofier inverses) are built once on the device."""
+
+from __future__ import annotations
+
+import torch
+
+from ..air.frame import DeviceFrame
+from ..field import device as fd
+from ..field.params import N_LIMBS, P
+from ..hash import keccak_device as kd
+from ..hash.merkle import tree_levels
+from ..ntt import core as nttc
+
+
+class ProverKernels:
+    """Domain tables and round computations for one (air, domain, device)."""
+
+    # the JAX package's single-program FRI commit chain is not ported yet;
+    # prove() takes the per-layer path, which gives the same bytes
+    supports_fri_chain = False
+
+    def __init__(self, air, domain, device):
+        self.air = air
+        self.domain = domain
+        self.device = torch.device(device)
+        dev = self.device
+        n = air.trace_length()
+        N = domain.lde_size
+        bound = air.composition_poly_degree_bound()
+        ctxc = air.context
+
+        # ---- boundary layout (host inspection) ----
+        bc_probe = air.boundary_constraints(self._probe_challenges())
+        self.boundary_steps = [c.step for c in bc_probe.constraints]
+        self.boundary_cols = [c.col for c in bc_probe.constraints]
+        self.distinct_steps = list(dict.fromkeys(self.boundary_steps))
+
+        # ---- domain tables ----
+        h = domain.coset_offset
+        w = domain.lde_primitive_root
+        t = {"lde_values": fd.mul(nttc.offset_powers(w, N, dev),
+                                  fd.from_int(h, device=dev))}
+        for name, e in [("d_adj_boundary", bound - n)] + [
+            (f"d_adj_{d}", bound - n * (d - 1))
+            for d in sorted(set(ctxc.transition_degrees))
+        ]:
+            t[name] = fd.mul(fd.powers(pow(w, e, P), N, device=dev),
+                             fd.from_int(pow(h, e, P), device=dev))
+        blowup = domain.blowup_factor
+        hn = pow(h, n, P)
+        wb = pow(w, n, P)
+        zf = fd.from_ints([pow((hn * pow(wb, j, P) - 1) % P, P - 2, P)
+                           for j in range(blowup)], device=dev)
+        t["zerofier_inv"] = zf.repeat(1, N // blowup)
+        for count in air.transition_exemption_counts():
+            prod = None
+            for r in air.exemption_roots(count):
+                f = fd.sub(t["lde_values"], fd.from_int(r, device=dev))
+                prod = f if prod is None else fd.mul(prod, f)
+            t[f"exemption_{count}"] = prod
+        if self.distinct_steps:
+            diffs = [fd.sub(t["lde_values"],
+                            fd.from_int(domain.trace_root_pow(s), device=dev))
+                     for s in self.distinct_steps]
+            inv_big = fd.batch_inverse(torch.cat(diffs, dim=1))
+            for i, s in enumerate(self.distinct_steps):
+                t[f"bz_inv_{s}"] = inv_big[:, i * N:(i + 1) * N]
+        self.tables = t
+
+    def _probe_challenges(self):
+        """Dummy rap challenges for structural inspection (boundary layout)."""
+        return self.air.build_rap_challenges(_ProbeTranscript())
+
+    # ------------------------------------------------------------------
+    # round 1: interpolate columns, LDE, leaf/tree hash
+    # ------------------------------------------------------------------
+
+    def interpolate_commit(self, trace_data: torch.Tensor):
+        """(16, cols, n) trace -> (polys (16, cols, n), LDE (16, cols, N),
+        Merkle levels over the LDE rows)."""
+        domain = self.domain
+        polys = nttc.interpolate_fft(trace_data)
+        lde = nttc.evaluate_on_lde_domain(
+            polys, domain.blowup_factor, domain.interpolation_domain_size,
+            domain.coset_offset)
+        rows = fd.from_mont(lde).permute(0, 2, 1)  # (16, N, cols)
+        return polys, lde, tree_levels(kd.hash_felt_rows(rows, rows.shape[2]))
+
+    def gather_columns(self, lde_evals: torch.Tensor, idxs: list[int]) -> torch.Tensor:
+        """All-column openings at the query indices: (16, cols, len(idxs))."""
+        ix = torch.tensor(idxs, dtype=torch.int64, device=lde_evals.device)
+        return lde_evals.index_select(-1, ix)
+
+    # ------------------------------------------------------------------
+    # round 2: whole-domain constraint evaluation + H + commit
+    # ------------------------------------------------------------------
+
+    def _constraint_sum(self, lde_evals, boundary_ab, transition_ab,
+                        boundary_values, rap_arrays) -> torch.Tensor:
+        air = self.air
+        ctxc = air.context
+        tc = self.tables
+        acc = None
+
+        def accumulate(term):
+            nonlocal acc
+            acc = term if acc is None else fd.add(acc, term)
+
+        step_groups: dict = {}
+        for i, step in enumerate(self.boundary_steps):
+            step_groups.setdefault(step, []).append(i)
+        for step, idxs in step_groups.items():
+            ix = torch.tensor(idxs, dtype=torch.int64, device=self.device)
+            cols = [self.boundary_cols[i] for i in idxs]
+            nums = fd.sub(lde_evals[:, cols, :],
+                          boundary_values.index_select(1, ix)[:, :, None])
+            coeff = fd.add(
+                fd.mul(tc["d_adj_boundary"][:, None, :],
+                       boundary_ab[0].index_select(1, ix)[:, :, None]),
+                boundary_ab[1].index_select(1, ix)[:, :, None])
+            summed = nttc.sum_reduce(fd.mul(nums, coeff), axis=1)
+            accumulate(fd.mul(summed, tc[f"bz_inv_{step}"]))
+
+        frame = DeviceFrame(lde_evals, ctxc.transition_offsets,
+                            self.domain.blowup_factor)
+        rap_fv = air.wrap_rap_challenges(frame.ctx, rap_arrays)
+        evals = air.compute_transition(frame, rap_fv)
+        groups: dict = {}
+        for i, (d, e) in enumerate(zip(ctxc.transition_degrees,
+                                       ctxc.transition_exemptions)):
+            groups.setdefault((d, e), []).append(i)
+        n_points = lde_evals.shape[2]
+        for (degree, exemption), idxs in sorted(groups.items()):
+            ix = torch.tensor(idxs, dtype=torch.int64, device=self.device)
+            evs = torch.stack(
+                [evals[i].v.expand(N_LIMBS, n_points) for i in idxs], dim=1)
+            coeff = fd.add(
+                fd.mul(tc[f"d_adj_{degree}"][:, None, :],
+                       transition_ab[0].index_select(1, ix)[:, :, None]),
+                transition_ab[1].index_select(1, ix)[:, :, None])
+            summed = nttc.sum_reduce(fd.mul(evs, coeff), axis=1)
+            summed = fd.mul(summed, tc["zerofier_inv"])
+            if exemption > 0:
+                summed = fd.mul(summed, tc[f"exemption_{exemption}"])
+            accumulate(summed)
+        return acc
+
+    def round2(self, lde_evals, boundary_ab, transition_ab, boundary_values,
+               rap_arrays):
+        """boundary_ab: (alphas, betas), each (16, n_bc); transition_ab:
+        (alphas, betas), each (16, n_tc); boundary_values: (16, n_bc);
+        rap_arrays: tuple of (16, 1) tensors."""
+        air = self.air
+        domain = self.domain
+        acc = self._constraint_sum(lde_evals, boundary_ab, transition_ab,
+                                   boundary_values, rap_arrays)
+        h_coeffs = nttc.interpolate_offset_fft(acc, domain.coset_offset)
+        h1 = h_coeffs[:, 0::2].contiguous()
+        h2 = h_coeffs[:, 1::2].contiguous()
+        h1_lde = nttc.evaluate_on_lde_domain(
+            h1, domain.blowup_factor, air.trace_length(), domain.coset_offset)
+        h2_lde = nttc.evaluate_on_lde_domain(
+            h2, domain.blowup_factor, air.trace_length(), domain.coset_offset)
+        rows = fd.from_mont(torch.stack([h1_lde, h2_lde], dim=2))
+        levels = tree_levels(kd.hash_felt_rows(rows, 2))
+        return h1, h2, h1_lde, h2_lde, levels
+
+    # ------------------------------------------------------------------
+    # round 3: OOD evaluations via powers-dot
+    # ------------------------------------------------------------------
+
+    def eval_at_powers(self, coeffs: torch.Tensor, powers_table: torch.Tensor):
+        """sum_i coeffs[..., i] * powers[i], out of Montgomery form:
+        (16, ...) canonical residues."""
+        return fd.from_mont(nttc.sum_reduce(fd.mul(coeffs, powers_table),
+                                            axis=-1))
+
+    # ------------------------------------------------------------------
+    # round 4: DEEP evaluation-form combination + interpolation
+    # ------------------------------------------------------------------
+
+    def deep_poly(self, lde_evals, h1_lde, h2_lde, point_arrs, gamma_arr,
+                  gammas_hh, ood_rows):
+        """point_arrs: (n_offsets+1, 16, 1) points (z*g^k..., z^2);
+        gamma_arr: (16, n_offsets*total_cols) trace gammas;
+        gammas_hh: (2, 16, 1); ood_rows: n_offsets (16, total_cols) rows and
+        a last (16, 2) row holding H1(z^2), H2(z^2)."""
+        N = self.domain.lde_size
+        n_offsets = len(self.air.context.transition_offsets)
+        lv = self.tables["lde_values"]
+        inv_all = fd.batch_inverse(torch.cat(
+            [fd.sub(lv, point_arrs[k]) for k in range(n_offsets + 1)], dim=1))
+        acc = None
+        for ki in range(n_offsets):
+            inv_k = inv_all[:, ki * N:(ki + 1) * N]
+            terms = fd.mul(fd.sub(lde_evals, ood_rows[ki][:, :, None]),
+                           inv_k[:, None, :])
+            g = gamma_arr[:, ki::n_offsets].contiguous()  # (16, cols)
+            terms = fd.mul(terms, g[:, :, None])
+            s = nttc.sum_reduce(terms, axis=1)
+            acc = s if acc is None else fd.add(acc, s)
+        inv_z = inv_all[:, n_offsets * N:]
+        for half, h_lde in enumerate((h1_lde, h2_lde)):
+            term = fd.mul(fd.mul(fd.sub(h_lde, ood_rows[n_offsets][:, half:half + 1]),
+                                 inv_z), gammas_hh[half])
+            acc = term if acc is None else fd.add(acc, term)
+        coeffs = nttc.interpolate_offset_fft(acc, self.domain.coset_offset)
+        return coeffs[:, :self.air.trace_length()].contiguous()
+
+    # ------------------------------------------------------------------
+    # FRI layers
+    # ------------------------------------------------------------------
+
+    def fri_first_layer(self, coeffs: torch.Tensor):
+        domain = self.domain
+        evals = nttc.evaluate_offset_fft(coeffs, 1, domain.lde_size,
+                                         domain.coset_offset)
+        return evals, tree_levels(kd.hash_felt_leaves(fd.from_mont(evals)))
+
+    def fri_fold_layer(self, coeffs, zeta_arr, offset_int, domain_size):
+        folded = fd.add(coeffs[:, 0::2], fd.mul(coeffs[:, 1::2], zeta_arr))
+        evals = nttc.evaluate_offset_fft(folded, 1, domain_size, offset_int)
+        leaves = kd.hash_felt_leaves(fd.from_mont(evals))
+        return folded, evals, tree_levels(leaves)
+
+
+class _ProbeTranscript:
+    """Deterministic stand-in used only to inspect boundary-constraint layout
+    (columns/steps) ahead of proving; never used for real challenges."""
+
+    def challenge(self) -> bytes:
+        return b"\x01" * 32
+
+    def append(self, data: bytes) -> None:
+        pass
+
+
+_KERNEL_CACHE: dict = {}
+
+
+def get_kernels(air, domain, device) -> ProverKernels:
+    device = torch.device(device)
+    key = (type(air).__name__, air.trace_length(), air.context.trace_columns,
+           air.context.proof_options, tuple(air.context.transition_exemptions),
+           air.kernel_cache_key(), device)
+    if key not in _KERNEL_CACHE:
+        _KERNEL_CACHE[key] = ProverKernels(air, domain, device)
+    return _KERNEL_CACHE[key]

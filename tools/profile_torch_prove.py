@@ -1,0 +1,129 @@
+#!/usr/bin/env python3
+"""Where the time of a warm ``simple_fibonacci`` prove goes on a CUDA GPU.
+
+Run from the root of the repository on a machine with a CUDA GPU:
+
+    python3 tools/profile_torch_prove.py [--log-rows 19] [--repeats 3]
+                                         [--out DIR]
+
+Proves once to build the kernels and tables, then ``--repeats`` times on
+the host clock (each prove ends in copies to the host, so the device work
+is inside), then once more under ``torch.profiler``.  Prints the card
+(``nvidia-smi``), the warm wall times with their per-round split, the
+device's busy time (the sum of kernel times: one stream, so kernels do not
+overlap) and idle share over the profiled prove, and the device time by
+group and by kernel.  With ``--out``, also writes the profiler's table
+there (a Chrome trace of a whole prove is too large to keep).  Uses the bench options: blowup 4, 80 FRI queries, coset offset
+3, grinding 20.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# kernel-name fragment -> group; the first match wins, the rest is "other"
+GROUPS = (
+    ("mont_mul_kernel", "H1 mont_mul"),
+    ("add_sub_kernel", "H2 add_sub_mod"),
+    ("ntt_dif_stage_kernel", "H3 ntt_dif_stage"),
+    ("ntt_dif_local_kernel", "H4 ntt_dif_local"),
+    ("roll", "PyTorch roll"),
+    ("gather", "PyTorch gather / index_select"),
+    ("index", "PyTorch gather / index_select"),
+    ("elementwise", "PyTorch elementwise"),
+    ("copy", "copies"),
+    ("Memcpy", "copies"),
+    ("Memset", "copies"),
+)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--log-rows", type=int, default=19)
+    ap.add_argument("--repeats", type=int, default=3)
+    ap.add_argument("--out", help="directory for the profiler's table")
+    args = ap.parse_args()
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        print("FAILED: torch.cuda.is_available() is false", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    from lambdaworks_cairo_prover_tpu_torch.air.examples.simple_fibonacci import (
+        FibonacciAIR, FibonacciPublicInputs, fibonacci_trace)
+    from lambdaworks_cairo_prover_tpu_torch.proof.options import ProofOptions
+    from lambdaworks_cairo_prover_tpu_torch.prover.prove import prove
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(f"[card] {card}", flush=True)
+    options = ProofOptions(blowup_factor=4, fri_number_of_queries=80,
+                           coset_offset=3, grinding_factor=20)
+    pub = FibonacciPublicInputs(a0=1, a1=1)
+    trace = fibonacci_trace([1, 1], 1 << args.log_rows)
+    dev = torch.device("cuda", 0)
+
+    def run():
+        t0 = time.perf_counter()
+        proof = prove(trace, pub, options, FibonacciAIR, device=dev)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, proof._timings
+
+    run()  # build kernels and tables
+    walls = []
+    for i in range(args.repeats):
+        wall, timings = run()
+        walls.append(wall)
+        split = ", ".join(f"{k} {v:.4f}" for k, v in timings.items())
+        print(f"[warm] prove {i}: {wall:.4f} s ({split})", flush=True)
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        wall, _ = run()
+    # device-side rows (kernels, copies, memsets) have no CPU time; the aten
+    # op that launched a kernel repeats its device time, so it is left out
+    by_name = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                      for e in prof.key_averages()
+                      if e.self_device_time_total > 0
+                      and e.self_cpu_time_total == 0), key=lambda r: -r[1])
+    busy_ms = sum(ms for _, ms, _ in by_name)
+    groups: dict = {}
+    for name, ms, count in by_name:
+        group = next((g for frag, g in GROUPS if frag in name), "other")
+        ms0, n0 = groups.get(group, (0.0, 0))
+        groups[group] = (ms0 + ms, n0 + count)
+    median = sorted(walls)[len(walls) // 2] if walls else wall
+    print(f"[profile] 2^{args.log_rows} rows: device busy {busy_ms:.1f} ms; "
+          f"idle share {1 - busy_ms / (wall * 1e3):.4f} of the profiled prove "
+          f"({wall:.4f} s), {1 - busy_ms / (median * 1e3):.4f} of the median "
+          f"unprofiled warm prove ({median:.4f} s)", flush=True)
+    for group, (ms, count) in sorted(groups.items(), key=lambda r: -r[1][0]):
+        print(f"[profile] {group}: {ms:.1f} ms device, {count} launches",
+              flush=True)
+    for name, ms, count in by_name[:25]:
+        print(f"[profile] {ms:9.1f} ms {count:7d}x {name[:200]}", flush=True)
+
+    if args.out:
+        os.makedirs(args.out, exist_ok=True)
+        with open(os.path.join(args.out, "key_averages.txt"), "w") as f:
+            f.write(prof.key_averages().table(
+                sort_by="self_device_time_total", row_limit=60))
+    print(json.dumps({"card": card, "log_rows": args.log_rows,
+                      "warm_prove_s": walls, "profiled_prove_s": wall,
+                      "device_busy_ms": busy_ms,
+                      "device_ms_by_group": {g: v[0] for g, v in groups.items()}}),
+          flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
