@@ -9,18 +9,32 @@ Phases (any failure exits non-zero):
   1. the card: name and power limit (nvidia-smi), CUDA version;
   2. build the hand-written kernels from csrc/ (nvcc, sm_90a);
   3. each kernel against its plain PyTorch version on the card, exactly
-     (H1 mont_mul, H2 add_sub_mod, H3 ntt_dif_stage, H4 ntt_dif_local, and
-     the whole NTT at 2^4 .. 2^21, forward and inverse, with a batch of 3);
+     (H1 mont_mul, H2 add_sub_mod, H3 ntt_dif_stage, H4 ntt_dif_local), at
+     the shapes of both real-size runs below: one 2^21-point column, and
+     the Cairo run's stacks of 15 and 8 columns (H1, H2) and of 34 and 18
+     columns (H3, H4) of 2^21 points; and the whole NTT at 2^4 .. 2^21,
+     forward and inverse, with a batch of 3;
   4. simple_fibonacci proofs against the JAX package's fixtures: 2^10 rows
      with test options (equal bytes) and, where the fixture has a digest,
      its size with the bench options (equal sha256);
-  5. the real-size run: simple_fibonacci at 2^19 rows, blowup 4, 80 FRI
-     queries, coset offset 3, grinding 20 — prove cold and warm, verify,
-     and check that every kernel was launched on the way.
+  5. the first slice's real-size run: simple_fibonacci at 2^19 rows, blowup
+     4, 80 FRI queries, coset offset 3, grinding 20 — prove cold and warm,
+     verify, and check that every kernel was launched on the way;
+  6. Cairo proofs against the JAX package's fixtures: fibonacci_program(5)
+     and rc_program with test options (equal proof files), and the Cairo
+     fibonacci with the bench options whose JAX digest is recorded;
+  7. the device RAP (auxiliary trace) build against the host oracle at 2^12
+     rows: equal limbs;
+  8. the Cairo real-size run: generate_prover_args(fibonacci_program(70000))
+     -> generate_cairo_proof with the bench options (2^19 rows x 52 columns),
+     cold and warm, -> verify_cairo_proof; every kernel must be launched;
+  9. the command line once on the card (prove_and_verify, a child process).
 
-The line before the last is a JSON object with each kernel's launch count
-in phase 5, its largest disagreement with the plain version, and its time
-against the plain version's at the main path's shapes; the last line is
+The line before the last is a JSON object with, for each kernel, its launch
+count in phase 8 (and in phase 5), its largest disagreement with the plain
+version, its time against the plain version's and the least time the card
+could take, at the Cairo run's widest shape (and under ``one_column`` at
+the one-column shape of phase 5); the last line is
 ``{"ok": true, "device": {...}}``.  This script imports no JAX.
 """
 
@@ -43,6 +57,40 @@ MULADD_LOG = 20         # H1 / H2 comparison size
 NTT_LOGS = (4, 10, 12, 17, 21)
 BENCH = dict(blowup_factor=4, fri_number_of_queries=80, coset_offset=3,
              grinding_factor=20)
+CAIRO_FIB_N = 70000     # the Cairo real-size run: 2^19 rows x 52 columns
+# the size of that proof with the bench options (it depends on the trace
+# shape and the options alone; bench.py of the JAX package records the same)
+CAIRO_FIB_PROOF_BYTES = 1_601_016
+CAIRO_AUX_FIB_N = 500   # 2^12 rows for the RAP build against the host oracle
+CAIRO_MAIN_COLS = 34    # columns that one NTT launch carries on that run
+CAIRO_AUX_COLS = 18
+CAIRO_FLAG_COLS = 15    # the instruction flags, stacked by the constraints
+RC_VALUES = (250, 77, 1 << 100)
+
+# The card's peaks (NVIDIA's H100 SXM data sheet): 3.35 TB/s of HBM and 67
+# TFLOP/s of float32 outside the tensor cores, i.e. 33.5e12 FMA instructions
+# a second on 128 lanes per SM.  An SM has half as many int32 lanes, so the
+# peak for 32-bit integer instructions is 16.75e12 a second.
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 67e12 / 2 / 2
+# 32-bit integer instructions that one operation on 8-word elements needs at
+# the least: a Montgomery product is 64 + 8 products of 32 x 32 -> 64 bits
+# (a * b, and m * 17 in each of the 8 reductions), two multiply instructions
+# each; an addition or subtraction mod p is an 8-word add and an 8-word
+# compare-and-subtract; a DIF butterfly is one of each.
+OPS_MUL = 2 * (64 + 8)
+OPS_ADD = 16
+OPS_BUTTERFLY = OPS_MUL + 2 * OPS_ADD
+ELEM_BYTES = 64  # 16 int32 limb words
+
+
+def bound(n_bytes: float, n_ops: float) -> dict:
+    """The least milliseconds the card could take: the larger of bytes over
+    the memory rate and integer instructions over their peak rate."""
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = n_ops / INT32_OPS_PER_S * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
 
 class SmokeFailure(Exception):
@@ -94,6 +142,38 @@ def random_limbs(torch, rng, shape, device):
     return torch.from_numpy(arr).to(device)
 
 
+def random_columns(torch, cols: int, n: int, device):
+    """Seeded canonical random elements made on the card, (16, cols, n), with
+    0, 1 and p-1 as the last three elements of every column."""
+    from lambdaworks_cairo_prover_tpu_torch.field.params import P, N_LIMBS
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED)
+    x = torch.randint(0, 1 << 16, (N_LIMBS, cols, n), dtype=torch.int32,
+                      device=device, generator=gen)
+    x[N_LIMBS - 1] &= 0x7FF
+    x[:, :, -3:-1] = 0
+    x[0, :, -2] = 1
+    for k in range(N_LIMBS):
+        x[k, :, -1] = ((P - 1) >> (16 * k)) & 0xFFFF
+    return x
+
+
+def err_by_columns(torch, got, plain, *operands) -> int:
+    """Largest |got - plain(*operands)| over (16, cols, n) tensors.  The plain
+    version goes one column at a time, which bounds its int64 temporaries; an
+    operand with one column is shared by all."""
+    err = 0
+    for c in range(got.shape[1]):
+        cols = [t if t.shape[1] == 1 else t[:, c:c + 1] for t in operands]
+        err = max(err, max_abs_err(torch, got[:, c:c + 1], plain(*cols)))
+    return err
+
+
+def shape_text(*tensors) -> str:
+    return " x ".join(str(tuple(t.shape)) for t in tensors)
+
+
 def phase_card(torch) -> None:
     require(torch.cuda.is_available(), "torch.cuda.is_available() is false")
     smi = subprocess.run(
@@ -129,6 +209,7 @@ def phase_kernels(torch, dev) -> dict:
     from lambdaworks_cairo_prover_tpu_torch.field.params import P
     from lambdaworks_cairo_prover_tpu_torch.ntt import core as nttc
     from lambdaworks_cairo_prover_tpu_torch.ntt import cuda_ntt as cn
+    from lambdaworks_cairo_prover_tpu_torch.prover.kernels import _COL_CHUNK
 
     rng = np.random.default_rng(SEED)
     out = {}
@@ -157,19 +238,23 @@ def phase_kernels(torch, dev) -> dict:
             f"max_abs_err {e}")
         require(e == 0, f"{name} disagrees with its plain version")
 
-    # main-path shape: one (16, 2^21) LDE-sized operand pair
+    # the simple_fibonacci path's shape: one (16, 2^21) LDE-sized operand pair
     lde = 1 << LDE_LOG
     big_a = random_limbs(torch, rng, (lde,), dev)[:, :lde].contiguous()
     big_b = random_limbs(torch, rng, (lde,), dev)[:, :lde].contiguous()
-    out["mont_mul"] = {
-        "max_abs_err": errs["mont_mul"],
+    one = {}
+    one["mont_mul"] = {
+        "shape": shape_text(big_a, big_b),
         "ms": cuda_ms(torch, lambda: cf.mont_mul(big_a, big_b), 20),
         "plain_ms": cuda_ms(torch, lambda: cf.mul_plain(big_a, big_b), 3),
+        # two operands read, one result written; one product per element
+        **bound(3 * ELEM_BYTES * lde, OPS_MUL * lde),
     }
-    out["add_sub_mod"] = {
-        "max_abs_err": errs["add_sub_mod"],
+    one["add_sub_mod"] = {
+        "shape": shape_text(big_a, big_b),
         "ms": cuda_ms(torch, lambda: cf.add_sub_mod(big_a, big_b, "sub"), 20),
         "plain_ms": cuda_ms(torch, lambda: cf.sub_plain(big_a, big_b), 3),
+        **bound(3 * ELEM_BYTES * lde, OPS_ADD * lde),
     }
 
     # H3 / H4 alone at the 2^21 LDE shape
@@ -186,15 +271,107 @@ def phase_kernels(torch, dev) -> dict:
     log(f"[kernels] ntt_dif_local vs plain at 2^{LDE_LOG}: max_abs_err {e4}")
     require(e3 == 0 and e4 == 0, "an NTT kernel disagrees with its plain version")
     work = x.clone()
-    out["ntt_dif_stage"] = {
-        "max_abs_err": e3,
+    one["ntt_dif_stage"] = {
+        "shape": shape_text(x),
         "ms": cuda_ms(torch, lambda: cn.ntt_dif_stage(work, tw, LDE_LOG - 6), 20),
         "plain_ms": cuda_ms(torch, lambda: cn.dif_stage_plain(x, tw, LDE_LOG - 6), 3),
+        # the array read and written once, the stage's m twiddles read once;
+        # n/2 butterflies
+        **bound(ELEM_BYTES * (2 * lde + (1 << (LDE_LOG - 6))),
+                OPS_BUTTERFLY * (lde // 2)),
     }
-    out["ntt_dif_local"] = {
-        "max_abs_err": e4,
+    one["ntt_dif_local"] = {
+        "shape": shape_text(x),
         "ms": cuda_ms(torch, lambda: cn.ntt_dif_local(work, tw, cn.LOCAL_LOG), 20),
         "plain_ms": cuda_ms(torch, lambda: cn.dif_local_plain(x, tw, cn.LOCAL_LOG), 2),
+        # the array read and written once, the 2^LOCAL_LOG twiddles read
+        # once; LOCAL_LOG stages of n/2 butterflies
+        **bound(ELEM_BYTES * (2 * lde + (1 << cn.LOCAL_LOG)),
+                OPS_BUTTERFLY * cn.LOCAL_LOG * (lde // 2)),
+    }
+
+    errs["ntt_dif_stage"], errs["ntt_dif_local"] = e3, e4
+
+    # The Cairo path's shapes.  The constraint and DEEP code hands H1 / H2
+    # the 15 stacked flag columns, or a slice of _COL_CHUNK LDE columns,
+    # against per-column constants, one shared row, or another stack; one NTT
+    # launch of H3 / H4 carries all 34 main (or 18 auxiliary) LDE columns.
+    wide = random_columns(torch, CAIRO_MAIN_COLS, lde, dev)
+    flags = wide[:, :CAIRO_FLAG_COLS].contiguous()
+    chunk = wide[:, _COL_CHUNK:2 * _COL_CHUNK]  # a view, as deep_poly slices
+    row = wide[:, -1:]
+    consts = wide[:, :CAIRO_FLAG_COLS, 7:8].contiguous()
+    pairs = [(flags, consts), (flags, row),
+             (flags, wide[:, CAIRO_FLAG_COLS:2 * CAIRO_FLAG_COLS]),
+             (chunk, consts[:, :_COL_CHUNK]), (chunk, row),
+             (chunk, wide[:, :_COL_CHUNK]), (row, consts[:, :_COL_CHUNK])]
+    for u, v in pairs:
+        e1 = err_by_columns(torch, cf.mont_mul(u, v), cf.mul_plain, u, v)
+        e2 = max(
+            err_by_columns(torch, cf.add_sub_mod(u, v, "add"), cf.add_plain, u, v),
+            err_by_columns(torch, cf.add_sub_mod(u, v, "sub"), cf.sub_plain, u, v))
+        log(f"[kernels] mont_mul, add_sub_mod vs plain at {shape_text(u, v)}: "
+            f"max_abs_err {e1}, {e2}")
+        errs["mont_mul"] = max(errs["mont_mul"], e1)
+        errs["add_sub_mod"] = max(errs["add_sub_mod"], e2)
+        require(e1 == 0 and e2 == 0, "a field kernel disagrees with its plain "
+                f"version at {shape_text(u, v)}")
+
+    def plain_by_columns(plain, u, v):
+        return [plain(u[:, c:c + 1], v[:, c:c + 1]) for c in range(u.shape[1])]
+
+    n_flag = CAIRO_FLAG_COLS * lde
+    out["mont_mul"] = {
+        "shape": shape_text(flags, consts),
+        "ms": cuda_ms(torch, lambda: cf.mont_mul(flags, consts), 10),
+        "plain_ms": cuda_ms(
+            torch, lambda: plain_by_columns(cf.mul_plain, flags, consts), 2),
+        # the stack read and written once, one constant per column read once
+        **bound(ELEM_BYTES * (2 * n_flag + CAIRO_FLAG_COLS), OPS_MUL * n_flag),
+    }
+    out["add_sub_mod"] = {
+        "shape": shape_text(flags, consts),
+        "ms": cuda_ms(torch, lambda: cf.add_sub_mod(flags, consts, "sub"), 10),
+        "plain_ms": cuda_ms(
+            torch, lambda: plain_by_columns(cf.sub_plain, flags, consts), 2),
+        **bound(ELEM_BYTES * (2 * n_flag + CAIRO_FLAG_COLS), OPS_ADD * n_flag),
+    }
+
+    stage_logs = (LDE_LOG - 1, LDE_LOG - 6, cn.LOCAL_LOG)
+    for cols in (CAIRO_MAIN_COLS, CAIRO_AUX_COLS):
+        xs = wide if cols == CAIRO_MAIN_COLS else wide[:, :cols].contiguous()
+        e3 = max(err_by_columns(
+            torch, cn.ntt_dif_stage(xs.clone(), tw, log_m),
+            lambda col, log_m=log_m: cn.dif_stage_plain(col, tw, log_m), xs)
+            for log_m in stage_logs)
+        e4 = err_by_columns(
+            torch, cn.ntt_dif_local(xs.clone(), tw, cn.LOCAL_LOG),
+            lambda col: cn.dif_local_plain(col, tw, cn.LOCAL_LOG), xs)
+        log(f"[kernels] ntt_dif_stage (m = 2^{stage_logs[0]}, 2^{stage_logs[1]}, "
+            f"2^{stage_logs[2]}), ntt_dif_local vs plain at {shape_text(xs)}: "
+            f"max_abs_err {e3}, {e4}")
+        errs["ntt_dif_stage"] = max(errs["ntt_dif_stage"], e3)
+        errs["ntt_dif_local"] = max(errs["ntt_dif_local"], e4)
+        require(e3 == 0 and e4 == 0, "an NTT kernel disagrees with its plain "
+                f"version at {shape_text(xs)}")
+    n_wide = CAIRO_MAIN_COLS * lde
+    columns = [wide[:, c:c + 1] for c in range(CAIRO_MAIN_COLS)]
+    work = wide.clone()
+    out["ntt_dif_stage"] = {
+        "shape": shape_text(wide),
+        "ms": cuda_ms(torch, lambda: cn.ntt_dif_stage(work, tw, LDE_LOG - 6), 10),
+        "plain_ms": cuda_ms(torch, lambda: [
+            cn.dif_stage_plain(col, tw, LDE_LOG - 6) for col in columns], 2),
+        **bound(ELEM_BYTES * (2 * n_wide + (1 << (LDE_LOG - 6))),
+                OPS_BUTTERFLY * (n_wide // 2)),
+    }
+    out["ntt_dif_local"] = {
+        "shape": shape_text(wide),
+        "ms": cuda_ms(torch, lambda: cn.ntt_dif_local(work, tw, cn.LOCAL_LOG), 10),
+        "plain_ms": cuda_ms(torch, lambda: [
+            cn.dif_local_plain(col, tw, cn.LOCAL_LOG) for col in columns], 1),
+        **bound(ELEM_BYTES * (2 * n_wide + (1 << cn.LOCAL_LOG)),
+                OPS_BUTTERFLY * cn.LOCAL_LOG * (n_wide // 2)),
     }
 
     # whole NTT (H3 + H4 + bit-reverse) against the plain DIT NTT
@@ -211,12 +388,20 @@ def phase_kernels(torch, dev) -> dict:
                 f"max_abs_err {fwd}, inverse max_abs_err {inv}")
             require(fwd == 0 and inv == 0, f"NTT mismatch at 2^{log_n}")
     v = big_a.reshape(16, lde)
+    whole = bound(2 * ELEM_BYTES * lde, OPS_BUTTERFLY * LDE_LOG * (lde // 2))
     log(f"[kernels] NTT 2^{LDE_LOG}: {cuda_ms(torch, lambda: nttc.ntt(v), 5):.3f} ms "
         f"(H3+H4), {cuda_ms(torch, lambda: cn.ntt_plain(v, False), 1):.3f} ms "
-        f"(plain)")
+        f"(plain), bound {whole['bound_ms']:.4f} ms by {whole['bound_by']}")
     for name, rec in out.items():
-        log(f"[kernels] {name}: {rec['ms']:.4f} ms kernel, "
-            f"{rec['plain_ms']:.4f} ms plain")
+        rec["max_abs_err"] = errs[name]  # over every shape compared above
+        # no single PyTorch call computes a 256-bit modular product, sum or
+        # butterfly, so there is no library time to put beside the kernel's
+        rec["library_ms"] = None
+        rec["one_column"] = one[name]
+        for r in (rec, one[name]):
+            log(f"[kernels] {name} at {r['shape']}: {r['ms']:.4f} ms kernel, "
+                f"{r['plain_ms']:.4f} ms plain, bound {r['bound_ms']:.4f} ms "
+                f"by {r['bound_by']}")
     return out
 
 
@@ -232,7 +417,7 @@ def _fib(log_n: int, bench: bool, dev, verify_it: bool = True):
                else ProofOptions.default_test_options())
     pub = FibonacciPublicInputs(a0=1, a1=1)
     t0 = time.perf_counter()
-    trace = fibonacci_trace([1, 1], 1 << log_n)
+    trace = fibonacci_trace([1, 1], 1 << log_n, device=dev)
     t_trace = time.perf_counter() - t0
     t0 = time.perf_counter()
     proof = prove(trace, pub, options, FibonacciAIR, device=dev)
@@ -271,18 +456,34 @@ def phase_fixtures(dev) -> None:
     require(got == digest["sha256"], f"2^{log_n} proof differs from the JAX digest")
 
 
-def phase_full(torch, dev) -> dict:
+def kernel_wrappers() -> dict:
     from lambdaworks_cairo_prover_tpu_torch.field import cuda_field as cf
     from lambdaworks_cairo_prover_tpu_torch.ntt import cuda_ntt as cn
 
-    wrappers = {"mont_mul": cf.mont_mul, "add_sub_mod": cf.add_sub_mod,
-                "ntt_dif_stage": cn.ntt_dif_stage, "ntt_dif_local": cn.ntt_dif_local}
+    return {"mont_mul": cf.mont_mul, "add_sub_mod": cf.add_sub_mod,
+            "ntt_dif_stage": cn.ntt_dif_stage, "ntt_dif_local": cn.ntt_dif_local}
+
+
+def reset_counts(torch) -> None:
+    """Every launch count to 0 and the peak-memory mark to now."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for w in wrappers.values():
+    for w in kernel_wrappers().values():
         w.launches = 0
+
+
+def read_counts(tag: str) -> dict:
+    launches = {name: w.launches for name, w in kernel_wrappers().items()}
+    log(f"[{tag}] kernel launches on this path: {launches}")
+    for name, count in launches.items():
+        require(count > 0, f"[{tag}] kernel {name} was not launched")
+    return launches
+
+
+def phase_full(torch, dev) -> dict:
+    reset_counts(torch)
     cold = _fib(FULL_LOG, bench=True, dev=dev)
-    launches = {name: w.launches for name, w in wrappers.items()}
+    launches = read_counts("full")
     peak = torch.cuda.max_memory_allocated()
     warm = _fib(FULL_LOG, bench=True, dev=dev)
     require(warm["bytes"] == cold["bytes"], "cold and warm proofs differ")
@@ -296,9 +497,6 @@ def phase_full(torch, dev) -> dict:
             f"verify {r['verify_s']:.3f} s, accepted")
     log(f"[full] torch.cuda.max_memory_allocated {peak} bytes "
         f"({peak / 2**30:.2f} GiB)")
-    log(f"[full] kernel launches in the cold prove: {launches}")
-    for name, count in launches.items():
-        require(count > 0, f"kernel {name} was not launched on the main path")
     fixture = os.path.join(FIXTURES, "simple_fibonacci_bench_digest.json")
     with open(fixture) as f:
         ref = json.load(f)
@@ -309,6 +507,160 @@ def phase_full(torch, dev) -> dict:
         log(f"[full] no JAX digest at 2^{FULL_LOG} rows (the fixture covers "
             f"{ref['trace_length']} rows)")
     return launches
+
+
+def _cairo(program, bench: bool, dev, args=None):
+    """generate_prover_args -> generate_cairo_proof -> verify_cairo_proof on
+    ``dev``; ``args`` reuses an earlier (trace, public inputs)."""
+    from lambdaworks_cairo_prover_tpu_torch.cairo.air import (
+        generate_cairo_proof, verify_cairo_proof)
+    from lambdaworks_cairo_prover_tpu_torch.cairo.runner import (
+        generate_prover_args)
+    from lambdaworks_cairo_prover_tpu_torch.proof.options import ProofOptions
+    from lambdaworks_cairo_prover_tpu_torch.proof.serde import (
+        serialize_proof, write_proof_file)
+
+    options = (ProofOptions(**BENCH) if bench
+               else ProofOptions.default_test_options())
+    t0 = time.perf_counter()
+    trace, pub = args or generate_prover_args(program, device=dev)
+    t_args = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    proof = generate_cairo_proof(trace, pub, options, device=dev)
+    t_prove = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    require(verify_cairo_proof(proof, pub, options),
+            "the port's verifier rejected its Cairo proof")
+    t_verify = time.perf_counter() - t0
+    wrong = type(pub).deserialize(pub.serialize())
+    wrong.pc_final += 1
+    require(not verify_cairo_proof(proof, wrong, options),
+            "wrong public inputs were accepted")
+    return {"bytes": serialize_proof(proof),
+            "file": write_proof_file(proof, pub.serialize()),
+            "trace": trace, "pub": pub, "args_s": t_args, "prove_s": t_prove,
+            "verify_s": t_verify, "timings": proof._timings,
+            "columns": len(proof.trace_ood_frame_evaluations[0])}
+
+
+def phase_cairo_fixture(dev) -> None:
+    from lambdaworks_cairo_prover_tpu_torch.cairo import programs
+
+    small = {"cairo_fib5_test_options.proof": programs.fibonacci_program(5),
+             "cairo_rc_test_options.proof": programs.rc_program(RC_VALUES)}
+    for name, program in small.items():
+        with open(os.path.join(FIXTURES, name), "rb") as f:
+            ref = f.read()
+        res = _cairo(program, bench=False, dev=dev)
+        log(f"[cairo-fixture] {name}: {res['trace'].n_rows} rows x "
+            f"{res['columns']} columns, {len(res['file'])} bytes, equal to "
+            f"the JAX proof file: {res['file'] == ref}")
+        require(res["file"] == ref, f"{name}: bytes differ from the JAX fixture")
+    with open(os.path.join(FIXTURES, "cairo_fib_bench_digest.json")) as f:
+        digest = json.load(f)
+    require(digest["options"] == BENCH, "Cairo digest fixture has other options")
+    res = _cairo(programs.fibonacci_program(digest["n"]), bench=True, dev=dev)
+    got = hashlib.sha256(res["bytes"]).hexdigest()
+    pub_got = hashlib.sha256(res["pub"].serialize()).hexdigest()
+    log(f"[cairo-fixture] fibonacci_program({digest['n']}), bench options: "
+        f"{res['trace'].n_rows} rows x {res['columns']} columns, "
+        f"{len(res['bytes'])} bytes, prove {res['prove_s']:.3f} s, sha256 "
+        f"{got}, equal to the JAX digest: {got == digest['sha256']}")
+    require((res["trace"].n_rows, res["columns"]) ==
+            (digest["trace_rows"], digest["trace_columns"]),
+            "trace shape differs from the JAX fixture's")
+    require(pub_got == digest["public_inputs_sha256"],
+            "public inputs differ from the JAX fixture's")
+    require(got == digest["sha256"], "Cairo bench proof differs from the JAX digest")
+
+
+def phase_cairo_aux(torch, dev) -> None:
+    """The device RAP build (sorts, batch inverses, prefix products through
+    H1/H2) against the python-int host oracle."""
+    from lambdaworks_cairo_prover_tpu_torch.cairo import programs
+    from lambdaworks_cairo_prover_tpu_torch.cairo.air import CairoAIR
+    from lambdaworks_cairo_prover_tpu_torch.cairo.runner import (
+        generate_prover_args)
+    from lambdaworks_cairo_prover_tpu_torch.field.params import P
+    from lambdaworks_cairo_prover_tpu_torch.proof.options import ProofOptions
+
+    trace, pub = generate_prover_args(
+        programs.fibonacci_program(CAIRO_AUX_FIB_N), device=dev)
+    require(trace.n_rows >= 1 << 12, f"only {trace.n_rows} rows")
+    air = CairoAIR(trace.n_rows, pub, ProofOptions(**BENCH))
+    challenges = tuple(pow(b, SEED, P) for b in (3, 5, 7))
+    t0 = time.perf_counter()
+    aux = air.build_auxiliary_trace(trace, challenges)
+    torch.cuda.synchronize()
+    t_dev = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = air.build_auxiliary_trace_host(trace, challenges)
+    t_host = time.perf_counter() - t0
+    require(aux.data.device.type == "cuda", "the RAP build left the card")
+    err = max_abs_err(torch, aux.data, host.data)
+    log(f"[cairo-aux] {trace.n_rows} rows x {aux.n_cols} auxiliary columns: "
+        f"device build {t_dev:.3f} s, host oracle {t_host:.3f} s, "
+        f"max_abs_err {err}")
+    require(err == 0, "the device RAP build differs from the host oracle")
+
+
+def phase_cairo_full(torch, dev) -> dict:
+    from lambdaworks_cairo_prover_tpu_torch.cairo import programs
+
+    program = programs.fibonacci_program(CAIRO_FIB_N)
+    reset_counts(torch)
+    cold = _cairo(program, bench=True, dev=dev)
+    launches = read_counts("cairo-full")
+    peak = torch.cuda.max_memory_allocated()
+    warm = _cairo(program, bench=True, dev=dev,
+                  args=(cold["trace"], cold["pub"]))
+    require(warm["bytes"] == cold["bytes"], "cold and warm Cairo proofs differ")
+    trace, stages = cold["trace"], cold["trace"]._timings
+    require((trace.n_rows, cold["columns"]) == (1 << FULL_LOG, 52),
+            f"expected 2^{FULL_LOG} rows x 52 columns, got {trace.n_rows} x "
+            f"{cold['columns']}")
+    log(f"[cairo-full] fibonacci_program({CAIRO_FIB_N}): {trace.n_rows} rows x "
+        f"{cold['columns']} columns ({trace.n_cols} main), blowup 4, 80 "
+        f"queries, coset 3, grinding 20")
+    log(f"[cairo-full] {stages['vm_name']} VM {stages['vm']:.3f} s, trace "
+        f"build {stages['trace_build']:.3f} s (host), ingest "
+        f"{stages['ingest']:.3f} s; generate_prover_args {cold['args_s']:.3f} s")
+    for tag, r in (("cold", cold), ("warm", warm)):
+        rounds = ", ".join(f"{k} {v:.3f}" for k, v in r["timings"].items())
+        log(f"[cairo-full] {tag} prove {r['prove_s']:.3f} s ({rounds}); "
+            f"verify {r['verify_s']:.3f} s, accepted; wrong public inputs "
+            f"rejected")
+    log(f"[cairo-full] proof size {len(cold['bytes'])} bytes, sha256 "
+        f"{hashlib.sha256(cold['bytes']).hexdigest()}; with public inputs "
+        f"{len(cold['file'])} bytes")
+    require(len(cold["bytes"]) == CAIRO_FIB_PROOF_BYTES,
+            f"proof size {len(cold['bytes'])} != {CAIRO_FIB_PROOF_BYTES}")
+    log(f"[cairo-full] torch.cuda.max_memory_allocated {peak} bytes "
+        f"({peak / 2**30:.2f} GiB)")
+    return launches
+
+
+def phase_cli(dev) -> None:
+    """The command line as a user runs it: a child process, CUDA by default."""
+    import tempfile
+
+    from lambdaworks_cairo_prover_tpu_torch.cairo import programs
+
+    prog = programs.fibonacci_program(10)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "fib10.json")
+        with open(path, "w") as f:
+            json.dump({"data": [hex(x) for x in prog.data],
+                       "identifiers": {"__main__.main": {"pc": prog.main_pc}},
+                       "builtins": prog.builtins}, f)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", f"{PKG}.cli", "prove_and_verify", path],
+            cwd=ROOT, capture_output=True, text=True, timeout=300)
+    log(f"[cli] prove_and_verify fib10.json: exit code {proc.returncode} in "
+        f"{time.perf_counter() - t0:.1f} s; {proc.stdout.strip().splitlines()}")
+    require(proc.returncode == 0 and "Verification succeded" in proc.stdout,
+            f"the CLI failed: {proc.stdout}\n{proc.stderr}")
 
 
 SOURCES = {
@@ -344,8 +696,14 @@ def main() -> int:
         phase_build()
         kern = phase_kernels(torch, dev)
         phase_fixtures(dev)
-        launches = phase_full(torch, dev)
-        require("jax" not in sys.modules, "JAX was imported")
+        launches_fib = phase_full(torch, dev)
+        phase_cairo_fixture(dev)
+        phase_cairo_aux(torch, dev)
+        launches = phase_cairo_full(torch, dev)
+        phase_cli(dev)
+        bad = sorted(m for m in sys.modules if m.split(".")[0] in
+                     ("jax", "jaxlib", "lambdaworks_cairo_prover_tpu"))
+        require(not bad, f"imported {bad}")
     except Exception as exc:  # report the failed phase, then exit non-zero
         import traceback
 
@@ -355,8 +713,11 @@ def main() -> int:
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1], "launches": launches[name],
+         "launches_simple_fibonacci": launches_fib[name],
          "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
-         "plain_ms": rec["plain_ms"]}
+         "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+         "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+         "shape": rec["shape"], "one_column": rec["one_column"]}
         for name, rec in kern.items()
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

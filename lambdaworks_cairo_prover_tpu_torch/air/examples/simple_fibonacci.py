@@ -47,10 +47,10 @@ class FibonacciAIR(AIR):
         )
 
 
-def fibonacci_trace(initial_values, trace_length) -> TraceTable:
+def fibonacci_trace(initial_values, trace_length, *, device) -> TraceTable:
     ret = [initial_values[0], initial_values[1]]
     from ...field.params import P
 
     for i in range(2, trace_length):
         ret.append((ret[i - 1] + ret[i - 2]) % P)
-    return TraceTable.from_int_columns([ret])
+    return TraceTable.from_int_columns([ret], device=device)

@@ -16,12 +16,24 @@ from .values import FV, HostCtx, TorchCtx
 
 
 class _DeviceRow:
-    def __init__(self, ctx: TorchCtx, data: torch.Tensor):
+    """Row ``k`` of the window: column ``c`` is the LDE column rolled by
+    ``shift`` positions.  A column is rolled when a constraint first reads
+    it and kept, so only the columns that are read at this offset are
+    copied (at 52 columns of 2^21 points a whole rolled copy is 7 GB)."""
+
+    def __init__(self, ctx: TorchCtx, data: torch.Tensor, shift: int):
         self._ctx = ctx
         self._data = data  # (16, n_cols, n_points)
+        self._shift = shift
+        self._cols: dict[int, torch.Tensor] = {}
 
     def __getitem__(self, col: int) -> FV:
-        return self._ctx.wrap(self._data[:, col, :])
+        if self._shift == 0:
+            return self._ctx.wrap(self._data[:, col, :])
+        if col not in self._cols:
+            self._cols[col] = torch.roll(self._data[:, col, :], -self._shift,
+                                         dims=1)
+        return self._ctx.wrap(self._cols[col])
 
 
 class DeviceFrame:
@@ -29,11 +41,8 @@ class DeviceFrame:
         # lde_data: (16, n_cols, n_points)
         self.ctx = TorchCtx(batch_shape=(lde_data.shape[2],),
                             device=lde_data.device)
-        self._rows = {}
-        for k in set(offsets):
-            self._rows[k] = _DeviceRow(
-                self.ctx, torch.roll(lde_data, -k * blowup, dims=2)
-            )
+        self._rows = {k: _DeviceRow(self.ctx, lde_data, k * blowup)
+                      for k in set(offsets)}
 
     def get_row(self, k: int) -> _DeviceRow:
         return self._rows[k]

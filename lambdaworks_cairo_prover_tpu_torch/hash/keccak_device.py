@@ -39,6 +39,7 @@ _ROT = [
 
 _RATE_LANES = 17  # 136 bytes
 _MAX_POS = (1 << 63) - 1
+_LEAF_CHUNK_FELTS = 1 << 23  # felts hashed per pass of hash_felt_rows
 
 
 def _signed(v: int) -> int:
@@ -120,8 +121,15 @@ def hash_felt_rows(limbs: torch.Tensor, n_cols: int) -> torch.Tensor:
     concatenated 32-byte BE encodings of the row's (non-Montgomery)
     elements."""
     n_rows = limbs.shape[1]
-    msg = felts_to_be_bytes(limbs).reshape(n_rows, n_cols * 32)
-    return _absorb(_pad_bytes(msg))
+    # the byte expansion takes some 40 int64 words per felt: go through the
+    # rows in chunks of about 2^23 felts (values do not depend on the chunk)
+    step = max(1, _LEAF_CHUNK_FELTS // max(n_cols, 1))
+    out = []
+    for r0 in range(0, n_rows, step):
+        part = limbs[:, r0:r0 + step]
+        msg = felts_to_be_bytes(part).reshape(part.shape[1], n_cols * 32)
+        out.append(_absorb(_pad_bytes(msg)))
+    return out[0] if len(out) == 1 else torch.cat(out, dim=0)
 
 
 def hash_felt_leaves(limbs: torch.Tensor) -> torch.Tensor:

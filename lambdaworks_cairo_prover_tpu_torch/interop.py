@@ -1,4 +1,4 @@
-"""Carry arrays between the JAX package and the port.
+"""Carry arrays and public inputs between the JAX package and the port.
 
 The JAX package keeps field elements as ``(16, ...)`` uint32 arrays of
 16-bit limbs in Montgomery form; the port keeps the same limbs as int32
@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from .air.trace import TraceTable
+from .cairo.air import PublicInputs
 from .field.params import N_LIMBS
 
 
@@ -41,3 +42,22 @@ def trace_from_numpy(data: np.ndarray, device) -> TraceTable:
         unpacked[1::2] = data >> 16
         data = unpacked
     return TraceTable(limbs_from_numpy(data, device))
+
+
+def public_inputs_from_jax(pub) -> PublicInputs:
+    """The port's `PublicInputs` from the JAX package's, field by field.
+    Segment ranges are rebuilt as ranges and both dicts keep their insertion
+    order, which is the wire order of ``serialize``."""
+    return PublicInputs(
+        pc_init=int(pub.pc_init), ap_init=int(pub.ap_init),
+        fp_init=int(pub.fp_init), pc_final=int(pub.pc_final),
+        ap_final=int(pub.ap_final),
+        range_check_min=(None if pub.range_check_min is None
+                         else int(pub.range_check_min)),
+        range_check_max=(None if pub.range_check_max is None
+                         else int(pub.range_check_max)),
+        memory_segments={name: range(rng.start, rng.stop)
+                         for name, rng in pub.memory_segments.items()},
+        public_memory={int(a): int(v) for a, v in pub.public_memory.items()},
+        num_steps=int(pub.num_steps),
+    )

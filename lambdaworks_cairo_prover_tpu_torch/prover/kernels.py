@@ -2,9 +2,12 @@
 (AIR shape, trace length, device).
 
 The counterpart of the JAX package's prover/kernels.py as plain eager
-methods: every round works on the whole LDE domain at once (the slice's
-state, unpacked, is about 1 GB, far below the H100's 80 GB), so there are
-no column or row chunks, packed buffers or jit caches.  Domain tables (LDE
+methods: every round works on the whole LDE domain at once, with no row
+chunks, packed buffers or jit caches.  Where a round would stack or expand
+every trace column at once (the constraint groups of round 2, the DEEP
+quotients of round 4: three temporaries of the LDE's size each, 7 GB at 52
+columns of 2^21 points), it goes through the columns ``_COL_CHUNK`` at a
+time and adds the partial sums, which gives the same values.  Domain tables (LDE
 coset values, degree-adjustment powers, zerofier cycle, exemption
 evaluations, boundary zerofier inverses) are built once on the device."""
 
@@ -18,6 +21,9 @@ from ..field.params import N_LIMBS, P
 from ..hash import keccak_device as kd
 from ..hash.merkle import tree_levels
 from ..ntt import core as nttc
+
+
+_COL_CHUNK = 8  # columns (or constraints) stacked into one temporary
 
 
 class ProverKernels:
@@ -139,14 +145,20 @@ class ProverKernels:
             groups.setdefault((d, e), []).append(i)
         n_points = lde_evals.shape[2]
         for (degree, exemption), idxs in sorted(groups.items()):
-            ix = torch.tensor(idxs, dtype=torch.int64, device=self.device)
-            evs = torch.stack(
-                [evals[i].v.expand(N_LIMBS, n_points) for i in idxs], dim=1)
-            coeff = fd.add(
-                fd.mul(tc[f"d_adj_{degree}"][:, None, :],
-                       transition_ab[0].index_select(1, ix)[:, :, None]),
-                transition_ab[1].index_select(1, ix)[:, :, None])
-            summed = nttc.sum_reduce(fd.mul(evs, coeff), axis=1)
+            summed = None
+            for j in range(0, len(idxs), _COL_CHUNK):
+                part = idxs[j:j + _COL_CHUNK]
+                ix = torch.tensor(part, dtype=torch.int64, device=self.device)
+                evs = torch.stack(
+                    [evals[i].v.expand(N_LIMBS, n_points) for i in part], dim=1)
+                for i in part:
+                    evals[i] = None  # stacked: let the evaluation go
+                coeff = fd.add(
+                    fd.mul(tc[f"d_adj_{degree}"][:, None, :],
+                           transition_ab[0].index_select(1, ix)[:, :, None]),
+                    transition_ab[1].index_select(1, ix)[:, :, None])
+                s = nttc.sum_reduce(fd.mul(evs, coeff), axis=1)
+                summed = s if summed is None else fd.add(summed, s)
             summed = fd.mul(summed, tc["zerofier_inv"])
             if exemption > 0:
                 summed = fd.mul(summed, tc[f"exemption_{exemption}"])
@@ -201,12 +213,15 @@ class ProverKernels:
         acc = None
         for ki in range(n_offsets):
             inv_k = inv_all[:, ki * N:(ki + 1) * N]
-            terms = fd.mul(fd.sub(lde_evals, ood_rows[ki][:, :, None]),
-                           inv_k[:, None, :])
             g = gamma_arr[:, ki::n_offsets].contiguous()  # (16, cols)
-            terms = fd.mul(terms, g[:, :, None])
-            s = nttc.sum_reduce(terms, axis=1)
-            acc = s if acc is None else fd.add(acc, s)
+            for c0 in range(0, lde_evals.shape[1], _COL_CHUNK):
+                c1 = c0 + _COL_CHUNK
+                terms = fd.mul(
+                    fd.sub(lde_evals[:, c0:c1], ood_rows[ki][:, c0:c1, None]),
+                    inv_k[:, None, :])
+                terms = fd.mul(terms, g[:, c0:c1, None])
+                s = nttc.sum_reduce(terms, axis=1)
+                acc = s if acc is None else fd.add(acc, s)
         inv_z = inv_all[:, n_offsets * N:]
         for half, h_lde in enumerate((h1_lde, h2_lde)):
             term = fd.mul(fd.mul(fd.sub(h_lde, ood_rows[n_offsets][:, half:half + 1]),

@@ -112,6 +112,16 @@ def _sample_z_ood(domain: Domain, transcript) -> int:
             return z
 
 
+def proving_device(device) -> torch.device:
+    """``device`` as a torch.device; raises where it names a CUDA device and
+    there is none (nothing moves to the CPU by itself)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise ProvingError("a CUDA device was requested but "
+                           "torch.cuda.is_available() is false")
+    return device
+
+
 def _sync(device: torch.device) -> None:
     """Wait for queued device work, so a round's host time includes it."""
     if device.type == "cuda":
@@ -133,11 +143,10 @@ def prove(
     The trace is moved to ``device`` and every table is built there.  A CUDA
     device runs the field and NTT math through the hand-written kernels; a
     CPU device runs their plain PyTorch versions.  The proof's per-round
-    host times (seconds, device work included) are on ``proof._timings``."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise ProvingError("a CUDA device was requested but "
-                           "torch.cuda.is_available() is false")
+    host times (seconds, device work included) are on ``proof._timings``;
+    ``round1_aux_build`` (the RAP auxiliary trace, where the AIR has one) is
+    part of ``round1``, the ``round4_*`` entries are parts of ``round4``."""
+    device = proving_device(device)
     timings = {}
     t0 = time.perf_counter()
 
@@ -176,8 +185,11 @@ def prove(
     lde_trace_merkle_trees = [main_tree]
 
     rap_challenges = air.build_rap_challenges(transcript)
+    t1a = time.perf_counter()
     aux_trace = air.build_auxiliary_trace(main_trace, rap_challenges)
     if not aux_trace.is_empty():
+        _sync(device)
+        timings["round1_aux_build"] = time.perf_counter() - t1a
         aux_polys, aux_lde, aux_levels = kern.interpolate_commit(
             aux_trace.data.to(device))
         trace_polys = torch.cat([trace_polys, aux_polys], dim=1)
@@ -408,7 +420,8 @@ def prove(
     timings["round4"] = time.perf_counter() - t4
 
     if instrument:
-        total = sum(v for k, v in timings.items() if k != "round0")
+        # whole rounds only: the round1_* and round4_* parts lie inside them
+        total = sum(timings[k] for k in ["round1", "round2", "round3", "round4"])
         fractions = " ".join(
             f"{timings[k] / total:.4f}"
             for k in ["round0", "round1", "round2", "round3", "round4"]

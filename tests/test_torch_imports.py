@@ -22,7 +22,12 @@ import lambdaworks_cairo_prover_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
-assert len(names) > 30, names
+assert len(names) > 40, names
+for mod in ("cli", "interop", "air.trace", "cairo.air", "cairo.cairo_mem",
+            "cairo.decode", "cairo.execution_trace", "cairo.native",
+            "cairo.programs", "cairo.register_states", "cairo.runner",
+            "cairo.vm"):
+    assert pkg.__name__ + "." + mod in names, mod
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "triton")
              or m.startswith("lambdaworks_cairo_prover_tpu."))

@@ -42,7 +42,7 @@ def jax_proof_bytes() -> bytes:
 
 @pytest.fixture(scope="module")
 def port_proof():
-    return prove(tfib.fibonacci_trace([1, 1], ROWS), PUB, OPTIONS,
+    return prove(tfib.fibonacci_trace([1, 1], ROWS, device="cpu"), PUB, OPTIONS,
                  tfib.FibonacciAIR, device="cpu")
 
 
@@ -71,7 +71,8 @@ def test_trace_carried_from_jax():
     """A JAX TraceTable's limbs become the port's trace unchanged."""
     j_data = np.asarray(jfib.fibonacci_trace([1, 1], 64).data)
     carried = trace_from_numpy(j_data, "cpu")
-    assert torch.equal(carried.data, tfib.fibonacci_trace([1, 1], 64).data)
+    port = tfib.fibonacci_trace([1, 1], 64, device="cpu")
+    assert torch.equal(carried.data, port.data)
 
 
 def test_1024_rows_equal_jax_fixture():
@@ -79,7 +80,7 @@ def test_1024_rows_equal_jax_fixture():
     with open(os.path.join(FIXTURES,
                            "simple_fibonacci_1024_test_options.proof"), "rb") as f:
         want = f.read()
-    proof = prove(tfib.fibonacci_trace([1, 1], 1 << 10), PUB, OPTIONS,
+    proof = prove(tfib.fibonacci_trace([1, 1], 1 << 10, device="cpu"), PUB, OPTIONS,
                   tfib.FibonacciAIR, device="cpu")
     assert tserde.serialize_proof(proof) == want
 
@@ -88,5 +89,5 @@ def test_cuda_prove_without_cuda_raises():
     if torch.cuda.is_available():
         pytest.skip("checks the error raised where CUDA is absent")
     with pytest.raises(ProvingError, match="CUDA"):
-        prove(tfib.fibonacci_trace([1, 1], ROWS), PUB, OPTIONS,
+        prove(tfib.fibonacci_trace([1, 1], ROWS, device="cpu"), PUB, OPTIONS,
               tfib.FibonacciAIR, device="cuda")

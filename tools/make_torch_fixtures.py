@@ -2,7 +2,8 @@
 
 Run once on a CPU host with JAX installed:
 
-    JAX_PLATFORMS=cpu python tools/make_torch_fixtures.py [--budget 900] [--logs 19 18 17 16]
+    JAX_PLATFORMS=cpu python tools/make_torch_fixtures.py [--budget 900] \
+        [--logs 19 18 17 16] [--cairo-fibs 8000 2000 500]
 
 Writes into tests/fixtures/torch_port/:
 
@@ -20,7 +21,20 @@ Writes into tests/fixtures/torch_port/:
 * ``butterfly2_64.json`` — the same for ``field/pallas_mul.py:butterfly2``
   (two fused DIT stages) on a 2^6-point input.
 
-The port's tests and ``chip_smoke.py`` compare their own outputs with these
+* ``cairo_fib5_test_options.proof`` and ``cairo_rc_test_options.proof`` — the
+  JAX package's proof files (``proof/serde.py:write_proof_file``: the proof,
+  then the serialized public inputs) of the Cairo programs
+  ``fibonacci_program(5)`` and ``rc_program((250, 77, 1 << 100))`` run through
+  ``generate_prover_args`` and ``generate_cairo_proof`` with
+  ``default_test_options()``.
+* ``cairo_fib_bench_digest.json`` — the sha256 and size of the JAX proof of
+  the largest Cairo ``fibonacci_program(n)`` (tried in the order of
+  ``--cairo-fibs``) that the JAX package proves on this host within
+  ``--budget`` seconds with the bench options, and of its serialized public
+  inputs.  The file states ``n`` and the trace's rows and columns.
+
+Each Cairo proof is made in a child process of its own.  The port's tests
+and ``chip_smoke.py`` compare their own outputs with these
 files.
 """
 
@@ -47,6 +61,13 @@ FUSED_LOG = 12
 FUSED_SEEDS = {"forward": 40, "inverse": 41}
 BUTTERFLY2_NAME = "butterfly2_64.json"
 BUTTERFLY2_LOG, BUTTERFLY2_STAGE, BUTTERFLY2_SEED = 6, 2, 50
+CAIRO_DIGEST_NAME = "cairo_fib_bench_digest.json"
+RC_VALUES = (250, 77, 1 << 100)
+# name of the proof file -> (generator in cairo/programs.py, its arguments)
+CAIRO_SMALL = {
+    "cairo_fib5_test_options.proof": ("fibonacci_program", (5,)),
+    "cairo_rc_test_options.proof": ("rc_program", (RC_VALUES,)),
+}
 
 
 def fused_input(seed: int, log_n: int = FUSED_LOG):
@@ -175,6 +196,72 @@ def _bench_worker(log_n: int, queue) -> None:
                time.perf_counter() - t0))
 
 
+def _cairo_worker(generator: str, gen_args: tuple, bench: bool, queue) -> None:
+    """Prove a program of cairo/programs.py with the JAX package; queues
+    (proof bytes, public-input bytes, rows, columns, seconds)."""
+    sys.path.insert(0, ROOT)
+    from lambdaworks_cairo_prover_tpu.cairo import programs
+    from lambdaworks_cairo_prover_tpu.cairo.air import generate_cairo_proof
+    from lambdaworks_cairo_prover_tpu.cairo.runner import generate_prover_args
+    from lambdaworks_cairo_prover_tpu.proof.options import ProofOptions
+    from lambdaworks_cairo_prover_tpu.proof.serde import serialize_proof
+
+    t0 = time.perf_counter()
+    options = (ProofOptions(**BENCH_OPTIONS) if bench
+               else ProofOptions.default_test_options())
+    trace, pub = generate_prover_args(getattr(programs, generator)(*gen_args))
+    proof = generate_cairo_proof(trace, pub, options)
+    columns = len(proof.trace_ood_frame_evaluations[0])  # main + auxiliary
+    queue.put((serialize_proof(proof), pub.serialize(), trace.n_rows,
+               columns, time.perf_counter() - t0))
+
+
+def _write_cairo_fixtures(budget: float, fibs: list[int]) -> None:
+    for name, (generator, gen_args) in CAIRO_SMALL.items():
+        result = _in_child(_cairo_worker, (generator, gen_args, False), budget)
+        if result is None:
+            print(f"{name}: failed or over the budget", flush=True)
+            continue
+        proof_bytes, pub_bytes, rows, cols, seconds = result
+        with open(os.path.join(OUT_DIR, name), "wb") as f:
+            # the framing of proof/serde.py:write_proof_file
+            f.write(len(proof_bytes).to_bytes(8, "big") + proof_bytes
+                    + pub_bytes)
+        print(f"wrote {name}: {rows} rows x {cols} columns, proof "
+              f"{len(proof_bytes)} B, {seconds:.1f} s", flush=True)
+
+    not_proved = {}
+    for n in fibs:
+        print(f"bench-options Cairo fibonacci_program({n}) "
+              f"(budget {budget:.0f} s)...", flush=True)
+        result = _in_child(_cairo_worker, ("fibonacci_program", (n,), True),
+                           budget)
+        if result is None:
+            print(f"  fib({n}): failed or did not finish within the budget",
+                  flush=True)
+            not_proved[str(n)] = f"failed or over the {budget:.0f} s budget"
+            continue
+        proof_bytes, pub_bytes, rows, cols, seconds = result
+        _write_json(CAIRO_DIGEST_NAME, {
+            "program": f"cairo/programs.py:fibonacci_program({n})",
+            "n": n,
+            "trace_rows": rows,
+            "trace_columns": cols,
+            "options": BENCH_OPTIONS,
+            "sha256": hashlib.sha256(proof_bytes).hexdigest(),
+            "proof_bytes": len(proof_bytes),
+            "public_inputs_sha256": hashlib.sha256(pub_bytes).hexdigest(),
+            "public_inputs_bytes": len(pub_bytes),
+            "made_by": "lambdaworks_cairo_prover_tpu (JAX) on CPU",
+            "jax_cpu_seconds": round(seconds, 1),
+            "larger_programs_not_proved": not_proved,
+        })
+        return
+    if fibs:
+        print("no bench-options Cairo program finished within the budget",
+              flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--budget", type=float, default=900.0,
@@ -184,6 +271,10 @@ def main() -> None:
     ap.add_argument("--skip-small", action="store_true")
     ap.add_argument("--skip-fused", action="store_true")
     ap.add_argument("--skip-butterfly2", action="store_true")
+    ap.add_argument("--cairo-fibs", type=int, nargs="*",
+                    default=[8000, 2000, 500],
+                    help="n of fibonacci_program(n) to try with the bench "
+                    "options, largest first (none: no Cairo fixtures)")
     args = ap.parse_args()
     os.makedirs(OUT_DIR, exist_ok=True)
 
@@ -197,6 +288,9 @@ def main() -> None:
     if not args.skip_butterfly2:
         _write_json(BUTTERFLY2_NAME,
                     _in_child(_butterfly2_worker, (), args.budget))
+
+    if args.cairo_fibs:
+        _write_cairo_fixtures(args.budget, args.cairo_fibs)
 
     not_proved = {}
     for log_n in args.logs:

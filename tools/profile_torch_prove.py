@@ -1,10 +1,15 @@
 #!/usr/bin/env python3
-"""Where the time of a warm ``simple_fibonacci`` prove goes on a CUDA GPU.
+"""Where the time of a warm prove goes on a CUDA GPU.
 
 Run from the root of the repository on a machine with a CUDA GPU:
 
-    python3 tools/profile_torch_prove.py [--log-rows 19] [--repeats 3]
-                                         [--out DIR]
+    python3 tools/profile_torch_prove.py [--workload simple_fibonacci|cairo_fib]
+        [--log-rows 19] [--repeats 3] [--out DIR]
+
+``--workload simple_fibonacci`` (the default) proves the one-column example
+AIR at 2^``--log-rows`` rows; ``--workload cairo_fib`` runs the Cairo program
+``fibonacci_program(70000)`` through ``generate_prover_args`` (2^19 rows x 52
+columns) and proves its trace with ``generate_cairo_proof``.
 
 Proves once to build the kernels and tables, then ``--repeats`` times on
 the host clock (each prove ends in copies to the host, so the device work
@@ -27,6 +32,7 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CAIRO_FIB_N = 70000  # the cairo_fib workload: 2^19 rows x 52 columns
 
 # kernel-name fragment -> group; the first match wins, the rest is "other"
 GROUPS = (
@@ -35,6 +41,10 @@ GROUPS = (
     ("ntt_dif_stage_kernel", "H3 ntt_dif_stage"),
     ("ntt_dif_local_kernel", "H4 ntt_dif_local"),
     ("roll", "PyTorch roll"),
+    ("sort", "PyTorch sort"),
+    ("Sort", "PyTorch sort"),
+    ("cat", "PyTorch cat / stack"),
+    ("Cat", "PyTorch cat / stack"),
     ("gather", "PyTorch gather / index_select"),
     ("index", "PyTorch gather / index_select"),
     ("elementwise", "PyTorch elementwise"),
@@ -46,7 +56,10 @@ GROUPS = (
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--log-rows", type=int, default=19)
+    ap.add_argument("--workload", choices=("simple_fibonacci", "cairo_fib"),
+                    default="simple_fibonacci")
+    ap.add_argument("--log-rows", type=int, default=19,
+                    help="simple_fibonacci: log2 of the trace length")
     ap.add_argument("--repeats", type=int, default=3)
     ap.add_argument("--out", help="directory for the profiler's table")
     args = ap.parse_args()
@@ -60,6 +73,13 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from lambdaworks_cairo_prover_tpu_torch.air.examples.simple_fibonacci import (
         FibonacciAIR, FibonacciPublicInputs, fibonacci_trace)
+    from lambdaworks_cairo_prover_tpu_torch.cairo.air import CairoAIR
+    from lambdaworks_cairo_prover_tpu_torch.cairo.programs import (
+        fibonacci_program)
+    from lambdaworks_cairo_prover_tpu_torch.cairo.runner import (
+        generate_prover_args)
+    from lambdaworks_cairo_prover_tpu_torch.field import cuda_field as cf
+    from lambdaworks_cairo_prover_tpu_torch.ntt import cuda_ntt as cn
     from lambdaworks_cairo_prover_tpu_torch.proof.options import ProofOptions
     from lambdaworks_cairo_prover_tpu_torch.prover.prove import prove
 
@@ -69,13 +89,29 @@ def main() -> int:
     print(f"[card] {card}", flush=True)
     options = ProofOptions(blowup_factor=4, fri_number_of_queries=80,
                            coset_offset=3, grinding_factor=20)
-    pub = FibonacciPublicInputs(a0=1, a1=1)
-    trace = fibonacci_trace([1, 1], 1 << args.log_rows)
     dev = torch.device("cuda", 0)
+    if args.workload == "cairo_fib":
+        air_class = CairoAIR
+        trace, pub = generate_prover_args(fibonacci_program(CAIRO_FIB_N),
+                                          device=dev)
+        stages = ", ".join(f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+                           for k, v in trace._timings.items())
+        print(f"[trace] fibonacci_program({CAIRO_FIB_N}): {stages}", flush=True)
+    else:
+        air_class = FibonacciAIR
+        pub = FibonacciPublicInputs(a0=1, a1=1)
+        trace = fibonacci_trace([1, 1], 1 << args.log_rows, device=dev)
+    what = f"{args.workload}, {trace.n_rows} rows x {trace.n_cols} main columns"
+    wrappers = {"H1 mont_mul": cf.mont_mul, "H2 add_sub_mod": cf.add_sub_mod,
+                "H3 ntt_dif_stage": cn.ntt_dif_stage,
+                "H4 ntt_dif_local": cn.ntt_dif_local}
 
     def run():
+        for w in wrappers.values():
+            w.launches = 0
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        proof = prove(trace, pub, options, FibonacciAIR, device=dev)
+        proof = prove(trace, pub, options, air_class, device=dev)
         torch.cuda.synchronize()
         return time.perf_counter() - t0, proof._timings
 
@@ -86,6 +122,9 @@ def main() -> int:
         walls.append(wall)
         split = ", ".join(f"{k} {v:.4f}" for k, v in timings.items())
         print(f"[warm] prove {i}: {wall:.4f} s ({split})", flush=True)
+    print(f"[warm] {what}: launches per prove "
+          f"{ {k: w.launches for k, w in wrappers.items()} }, peak device "
+          f"memory {torch.cuda.max_memory_allocated()} bytes", flush=True)
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         wall, _ = run()
@@ -102,7 +141,7 @@ def main() -> int:
         ms0, n0 = groups.get(group, (0.0, 0))
         groups[group] = (ms0 + ms, n0 + count)
     median = sorted(walls)[len(walls) // 2] if walls else wall
-    print(f"[profile] 2^{args.log_rows} rows: device busy {busy_ms:.1f} ms; "
+    print(f"[profile] {what}: device busy {busy_ms:.1f} ms; "
           f"idle share {1 - busy_ms / (wall * 1e3):.4f} of the profiled prove "
           f"({wall:.4f} s), {1 - busy_ms / (median * 1e3):.4f} of the median "
           f"unprofiled warm prove ({median:.4f} s)", flush=True)
@@ -117,7 +156,8 @@ def main() -> int:
         with open(os.path.join(args.out, "key_averages.txt"), "w") as f:
             f.write(prof.key_averages().table(
                 sort_by="self_device_time_total", row_limit=60))
-    print(json.dumps({"card": card, "log_rows": args.log_rows,
+    print(json.dumps({"card": card, "workload": args.workload,
+                      "rows": trace.n_rows, "main_columns": trace.n_cols,
                       "warm_prove_s": walls, "profiled_prove_s": wall,
                       "device_busy_ms": busy_ms,
                       "device_ms_by_group": {g: v[0] for g, v in groups.items()}}),
