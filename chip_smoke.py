@@ -9,11 +9,14 @@ Phases (any failure exits non-zero):
   1. the card: name and power limit (nvidia-smi), CUDA version;
   2. build the hand-written kernels from csrc/ (nvcc, sm_90a);
   3. each kernel against its plain PyTorch version on the card, exactly
-     (H1 mont_mul, H2 add_sub_mod, H3 ntt_dif_stage, H4 ntt_dif_local), at
+     (H1 mont_mul, H2 add_sub_mod, H3 ntt_dif_stages, H4 ntt_dif_local), at
      the shapes of both real-size runs below: one 2^21-point column, and
      the Cairo run's stacks of 15 and 8 columns (H1, H2) and of 34 and 18
-     columns (H3, H4) of 2^21 points; and the whole NTT at 2^4 .. 2^21,
-     forward and inverse, with a batch of 3;
+     columns (H3, H4) of 2^21 points.  H3 and H4: every pass of the
+     transforms those runs make (2^21 and 2^19 points at 1, 34 and 18
+     columns, 2^22 at one), H3 in place and out of place, and at 2^21 also
+     one stage alone and H4 on 2^10-point chunks in place; and the whole
+     NTT at 2^4 .. 2^22, forward and inverse, alone and with a batch of 3;
   4. simple_fibonacci proofs against the JAX package's fixtures: 2^10 rows
      with test options (equal bytes) and, where the fixture has a digest,
      its size with the bench options (equal sha256);
@@ -34,7 +37,9 @@ The line before the last is a JSON object with, for each kernel, its launch
 count in phase 8 (and in phase 5), its largest disagreement with the plain
 version, its time against the plain version's and the least time the card
 could take, at the Cairo run's widest shape (and under ``one_column`` at
-the one-column shape of phase 5); the last line is
+the one-column shape of phase 5), H3 at its widest pass, H4 at the last
+pass of the 2^21 transform (and under ``ten_stages`` at 10 stages in
+place), and the whole 2^21 transform under ``whole_ntt``; the last line is
 ``{"ok": true, "device": {...}}``.  This script imports no JAX.
 """
 
@@ -53,8 +58,9 @@ PKG = "lambdaworks_cairo_prover_tpu_torch"
 SEED = 20260516
 FULL_LOG = 19          # the real-size run
 LDE_LOG = FULL_LOG + 2  # its LDE: the main path's largest kernel shapes
+COMPOSITION_LOG = FULL_LOG + 3  # the LDE of a composition half: 2^22 points
 MULADD_LOG = 20         # H1 / H2 comparison size
-NTT_LOGS = (4, 10, 12, 17, 21)
+NTT_LOGS = (4, 10, 11, 12, 17, FULL_LOG, LDE_LOG, COMPOSITION_LOG)
 BENCH = dict(blowup_factor=4, fri_number_of_queries=80, coset_offset=3,
              grinding_factor=20)
 CAIRO_FIB_N = 70000     # the Cairo real-size run: 2^19 rows x 52 columns
@@ -70,18 +76,20 @@ RC_VALUES = (250, 77, 1 << 100)
 # The card's peaks (NVIDIA's H100 SXM data sheet): 3.35 TB/s of HBM and 67
 # TFLOP/s of float32 outside the tensor cores, i.e. 33.5e12 FMA instructions
 # a second on 128 lanes per SM.  An SM has half as many int32 lanes, so the
-# peak for 32-bit integer instructions is 16.75e12 a second.
+# peak for 32-bit integer instructions is 16.75e12 a second; a multiply-add
+# of 32 x 32 + 64 -> 64 bits (mad.wide.u32, IMAD.WIDE) is one of them.
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12 / 2 / 2
 # 32-bit integer instructions that one operation on 8-word elements needs at
-# the least: a Montgomery product is 64 + 8 products of 32 x 32 -> 64 bits
-# (a * b, and m * 17 in each of the 8 reductions), two multiply instructions
-# each; an addition or subtraction mod p is an 8-word add and an 8-word
-# compare-and-subtract; a DIF butterfly is one of each.
-OPS_MUL = 2 * (64 + 8)
+# the least.  A Montgomery product is 64 + 8 wide multiply-adds (a * b, and
+# m * 17 in each of the 8 reductions) and an 8-word subtraction at the end;
+# an addition or subtraction mod p is an 8-word add and an 8-word
+# compare-and-subtract.  A DIF butterfly is an addition, a subtraction and,
+# unless its twiddle is one, a product (butterfly_ops).
+OPS_MUL = 64 + 8 + 8
 OPS_ADD = 16
-OPS_BUTTERFLY = OPS_MUL + 2 * OPS_ADD
 ELEM_BYTES = 64  # 16 int32 limb words
+TWIDDLE_BYTES = 32  # an entry of the packed table the NTT kernels read
 
 
 def bound(n_bytes: float, n_ops: float) -> dict:
@@ -90,7 +98,26 @@ def bound(n_bytes: float, n_ops: float) -> dict:
     by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     by_ops = n_ops / INT32_OPS_PER_S * 1e3
     return {"bound_ms": max(by_bytes, by_ops),
-            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bytes_ms": by_bytes, "operations_ms": by_ops}
+
+
+def bound_text(rec: dict) -> str:
+    return (f"bound {rec['bound_ms']:.4f} ms by {rec['bound_by']} (bytes "
+            f"{rec['bytes_ms']:.4f}, operations {rec['operations_ms']:.4f}), "
+            f"share {rec['bound_ms'] / rec['ms']:.3f}")
+
+
+def butterfly_ops(n_points: int, log_m_hi: int, n_stages: int) -> int:
+    """Instructions that the DIF stages of half-size 2^log_m_hi ..
+    2^(log_m_hi - n_stages + 1) over n_points need at the least: n_points / 2
+    butterflies a stage, less the products by a twiddle of one (all of the
+    stage m = 1, half of the stage m = 2)."""
+    pairs = n_points // 2
+    products = 0
+    for log_m in range(log_m_hi, log_m_hi - n_stages, -1):
+        products += pairs if log_m > 1 else pairs // 2 * log_m
+    return 2 * OPS_ADD * n_stages * pairs + OPS_MUL * products
 
 
 class SmokeFailure(Exception):
@@ -106,9 +133,11 @@ def require(cond: bool, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
-def cuda_ms(torch, fn, reps: int) -> float:
-    """Mean milliseconds of ``fn`` on the card (CUDA events, after a warm-up)."""
-    fn()
+def cuda_ms(torch, fn, reps: int, warm_up: bool = True) -> float:
+    """Mean milliseconds of ``fn`` on the card (CUDA events, after a warm-up
+    unless the caller has run ``fn`` before and one run takes seconds)."""
+    if warm_up:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -118,6 +147,17 @@ def cuda_ms(torch, fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def timed(torch, fn) -> tuple:
+    """(result, milliseconds on the card) of one call of ``fn``."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def max_abs_err(torch, a, b) -> int:
@@ -201,6 +241,122 @@ def phase_build() -> None:
             log(f"[build] {line.strip()}")
 
 
+class NttChecks:
+    """H3 and H4 against their plain versions, and their times, on the
+    (16, cols, n) tensors that the transforms of both real-size runs hand
+    them: every pass of ``ntt_passes`` for that n."""
+
+    def __init__(self, torch, dev):
+        from lambdaworks_cairo_prover_tpu_torch.ntt import cuda_ntt as cn
+
+        self.torch, self.cn = torch, cn
+        # a smaller transform reads a prefix of the tables
+        self.tw = cn.twiddle_table(max(NTT_LOGS), False, dev)
+        self.twp = cn.packed_twiddle_table(max(NTT_LOGS), False, dev)
+        self.plain_ms = {}  # (kernel, first stage, stages, natural, shape) -> ms
+
+    def cases(self, log_n: int) -> list:
+        """(kernel, first stage, stages, natural-order output): the passes of
+        a 2^log_n-point transform; at 2^LDE_LOG also one stage alone through
+        H3 and a 2^LOCAL_LOG-point chunk through H4, both left in the DIF's
+        order."""
+        cn = self.cn
+        cases = [("ntt_dif_local" if p.local else "ntt_dif_stages", p.log_m_hi,
+                  p.n_stages, p.natural) for p in cn.ntt_passes(log_n)]
+        if log_n == LDE_LOG:
+            cases += [("ntt_dif_stages", log_n - 6, 1, False),
+                      ("ntt_dif_local", cn.LOCAL_LOG - 1, cn.LOCAL_LOG, False)]
+        return cases
+
+    def compare(self, xs, *narrower) -> dict:
+        """Largest disagreement of every case on xs, and on each of
+        ``narrower`` (tensors that hold the first columns of xs: one launch
+        carries them as the path does, and a column's plain result serves
+        all): out of place and, but for the natural-order output, in place.
+        The plain version goes column by column, which bounds its int64
+        temporaries; its time on xs is kept for :meth:`times`."""
+        torch, cn, tw, twp = self.torch, self.cn, self.tw, self.twp
+        log_n = xs.shape[2].bit_length() - 1
+        cn.bitrev_indices(log_n, xs.device)  # built outside the plain times
+        errs = {"ntt_dif_stages": 0, "ntt_dif_local": 0}
+        for name, hi, r, natural in self.cases(log_n):
+            if name == "ntt_dif_stages":
+                def run(src, dst):
+                    return cn.ntt_dif_stages(src, dst, twp, hi, r)
+
+                def plain(col):
+                    return cn.dif_stages_plain(col, tw, hi, r)
+            else:
+                def run(src, dst):
+                    return cn.ntt_dif_local(src, dst, twp, r, natural)
+
+                def plain(col):
+                    return cn.dif_local_plain(col, tw, r, natural)
+            got = []
+            for t in (xs,) + narrower:
+                got.append(run(t, torch.empty_like(t)))
+                if not natural:
+                    work = t.clone()
+                    got.append(run(work, work))
+            ms = 0.0
+            for c in range(xs.shape[1]):
+                want, t = timed(torch, lambda: plain(xs[:, c:c + 1]))
+                ms += t
+                errs[name] = max(errs[name], *[
+                    max_abs_err(torch, g[:, c:c + 1], want)
+                    for g in got if c < g.shape[1]])
+            self.plain_ms[(name, hi, r, natural, shape_text(xs))] = ms
+        log(f"[kernels] (kernel, first stage, stages, natural order) "
+            f"{self.cases(log_n)} vs plain at "
+            f"{', '.join(shape_text(t) for t in (xs,) + narrower)}, out of "
+            f"place and (but for natural order) in place: max_abs_err "
+            f"{errs['ntt_dif_stages']}, {errs['ntt_dif_local']}")
+        require(not any(errs.values()), "an NTT kernel disagrees with its "
+                f"plain version at {shape_text(xs)} or a narrower stack")
+        return errs
+
+    def times(self, xs) -> dict:
+        """H3 at its widest pass (the first), H4 at the transform's last pass
+        and, under ``ten_stages``, at 2^LOCAL_LOG-point chunks in place; the
+        plain versions' times are those of :meth:`compare` on xs."""
+        torch, cn, twp = self.torch, self.cn, self.twp
+        n_points = xs[0].numel()
+        log_n = xs.shape[2].bit_length() - 1
+        work, other = xs.clone(), torch.empty_like(xs)
+        reps = 20 if xs.shape[1] == 1 else 10
+        first, last = cn.ntt_passes(log_n)[0], cn.ntt_passes(log_n)[-1]
+        hi, r = first.log_m_hi, first.n_stages
+
+        def h4(stages, natural):
+            dst = other if natural else work
+            return {
+                "n_stages": stages, "natural": natural,
+                "ms": cuda_ms(torch, lambda: cn.ntt_dif_local(
+                    work, dst, twp, stages, natural), reps),
+                "plain_ms": self.plain_ms[("ntt_dif_local", stages - 1, stages,
+                                           natural, shape_text(xs))],
+                # the array read and written once, 2^stages twiddles read once
+                **bound(2 * ELEM_BYTES * n_points + TWIDDLE_BYTES * (1 << stages),
+                        butterfly_ops(n_points, stages - 1, stages))}
+
+        return {
+            "ntt_dif_stages": {
+                "shape": shape_text(xs), "log_m_hi": hi, "n_stages": r,
+                "ms": cuda_ms(torch, lambda: cn.ntt_dif_stages(
+                    work, work, twp, hi, r), reps),
+                "plain_ms": self.plain_ms[
+                    ("ntt_dif_stages", hi, r, False, shape_text(xs))],
+                # the array read and written once, the twiddles of the r
+                # stages (2^(hi+1) - 2^(hi+1-r) entries) read once
+                **bound(2 * ELEM_BYTES * n_points + TWIDDLE_BYTES *
+                        ((1 << (hi + 1)) - (1 << (hi + 1 - r))),
+                        butterfly_ops(n_points, hi, r))},
+            "ntt_dif_local": {"shape": shape_text(xs),
+                              **h4(last.n_stages, True),
+                              "ten_stages": h4(cn.LOCAL_LOG, False)},
+        }
+
+
 def phase_kernels(torch, dev) -> dict:
     """Kernels against plain versions; returns per-kernel error and times."""
     import numpy as np
@@ -221,7 +377,16 @@ def phase_kernels(torch, dev) -> dict:
     a2 = a[:, :1 << MULADD_LOG].reshape(16, 4, 1 << (MULADD_LOG - 2))
     col = b[:, :4].reshape(16, 4, 1).contiguous()
     errs = {"mont_mul": 0, "add_sub_mod": 0}
-    cases = [(a, b), (a, s), (s, b), (a2, col), (col, a2), (a2, a2[:, 1:2])]
+    # operands whose 32-bit words are each 0, 1, 2^31 or 2^32 - 1 (the top word
+    # 0, so they stay below p): the kernels' carry chains at their edges
+    pick = torch.randint(0, 4, (8, 1 << 14), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(SEED))
+    pick[7] = 0
+    sparse = torch.empty((16, 1 << 14), dtype=torch.int32, device=dev)
+    sparse[0::2] = torch.tensor([0, 1, 0, 0xFFFF], dtype=torch.int32, device=dev)[pick]
+    sparse[1::2] = torch.tensor([0, 0, 0x8000, 0xFFFF], dtype=torch.int32, device=dev)[pick]
+    cases = [(a, b), (a, s), (s, b), (a2, col), (col, a2), (a2, a2[:, 1:2]),
+             (sparse, sparse.flip(1)), (sparse, a[:, :1 << 14])]
     for x, y in cases:
         errs["mont_mul"] = max(errs["mont_mul"], max_abs_err(
             torch, cf.mont_mul(x, y), cf.mul_plain(x, y)))
@@ -257,40 +422,11 @@ def phase_kernels(torch, dev) -> dict:
         **bound(3 * ELEM_BYTES * lde, OPS_ADD * lde),
     }
 
-    # H3 / H4 alone at the 2^21 LDE shape
+    # H3 / H4 at one 2^21-point column
     x = big_a.reshape(16, 1, lde)
-    tw = cn.twiddle_table(LDE_LOG, False, dev)
-    e3 = 0
-    for log_m in (LDE_LOG - 1, LDE_LOG - 6, cn.LOCAL_LOG):
-        e3 = max(e3, max_abs_err(torch, cn.ntt_dif_stage(x.clone(), tw, log_m),
-                                 cn.dif_stage_plain(x, tw, log_m)))
-    e4 = max_abs_err(torch, cn.ntt_dif_local(x.clone(), tw, cn.LOCAL_LOG),
-                     cn.dif_local_plain(x, tw, cn.LOCAL_LOG))
-    log(f"[kernels] ntt_dif_stage vs plain at 2^{LDE_LOG} (m = 2^{LDE_LOG - 1}, "
-        f"2^{LDE_LOG - 6}, 2^{cn.LOCAL_LOG}): max_abs_err {e3}")
-    log(f"[kernels] ntt_dif_local vs plain at 2^{LDE_LOG}: max_abs_err {e4}")
-    require(e3 == 0 and e4 == 0, "an NTT kernel disagrees with its plain version")
-    work = x.clone()
-    one["ntt_dif_stage"] = {
-        "shape": shape_text(x),
-        "ms": cuda_ms(torch, lambda: cn.ntt_dif_stage(work, tw, LDE_LOG - 6), 20),
-        "plain_ms": cuda_ms(torch, lambda: cn.dif_stage_plain(x, tw, LDE_LOG - 6), 3),
-        # the array read and written once, the stage's m twiddles read once;
-        # n/2 butterflies
-        **bound(ELEM_BYTES * (2 * lde + (1 << (LDE_LOG - 6))),
-                OPS_BUTTERFLY * (lde // 2)),
-    }
-    one["ntt_dif_local"] = {
-        "shape": shape_text(x),
-        "ms": cuda_ms(torch, lambda: cn.ntt_dif_local(work, tw, cn.LOCAL_LOG), 20),
-        "plain_ms": cuda_ms(torch, lambda: cn.dif_local_plain(x, tw, cn.LOCAL_LOG), 2),
-        # the array read and written once, the 2^LOCAL_LOG twiddles read
-        # once; LOCAL_LOG stages of n/2 butterflies
-        **bound(ELEM_BYTES * (2 * lde + (1 << cn.LOCAL_LOG)),
-                OPS_BUTTERFLY * cn.LOCAL_LOG * (lde // 2)),
-    }
-
-    errs["ntt_dif_stage"], errs["ntt_dif_local"] = e3, e4
+    ntt = NttChecks(torch, dev)
+    errs.update(ntt.compare(x))
+    one.update(ntt.times(x))
 
     # The Cairo path's shapes.  The constraint and DEEP code hands H1 / H2
     # the 15 stacked flag columns, or a slice of _COL_CHUNK LDE columns,
@@ -337,47 +473,26 @@ def phase_kernels(torch, dev) -> dict:
         **bound(ELEM_BYTES * (2 * n_flag + CAIRO_FLAG_COLS), OPS_ADD * n_flag),
     }
 
-    stage_logs = (LDE_LOG - 1, LDE_LOG - 6, cn.LOCAL_LOG)
-    for cols in (CAIRO_MAIN_COLS, CAIRO_AUX_COLS):
-        xs = wide if cols == CAIRO_MAIN_COLS else wide[:, :cols].contiguous()
-        e3 = max(err_by_columns(
-            torch, cn.ntt_dif_stage(xs.clone(), tw, log_m),
-            lambda col, log_m=log_m: cn.dif_stage_plain(col, tw, log_m), xs)
-            for log_m in stage_logs)
-        e4 = err_by_columns(
-            torch, cn.ntt_dif_local(xs.clone(), tw, cn.LOCAL_LOG),
-            lambda col: cn.dif_local_plain(col, tw, cn.LOCAL_LOG), xs)
-        log(f"[kernels] ntt_dif_stage (m = 2^{stage_logs[0]}, 2^{stage_logs[1]}, "
-            f"2^{stage_logs[2]}), ntt_dif_local vs plain at {shape_text(xs)}: "
-            f"max_abs_err {e3}, {e4}")
-        errs["ntt_dif_stage"] = max(errs["ntt_dif_stage"], e3)
-        errs["ntt_dif_local"] = max(errs["ntt_dif_local"], e4)
-        require(e3 == 0 and e4 == 0, "an NTT kernel disagrees with its plain "
-                f"version at {shape_text(xs)}")
-    n_wide = CAIRO_MAIN_COLS * lde
-    columns = [wide[:, c:c + 1] for c in range(CAIRO_MAIN_COLS)]
-    work = wide.clone()
-    out["ntt_dif_stage"] = {
-        "shape": shape_text(wide),
-        "ms": cuda_ms(torch, lambda: cn.ntt_dif_stage(work, tw, LDE_LOG - 6), 10),
-        "plain_ms": cuda_ms(torch, lambda: [
-            cn.dif_stage_plain(col, tw, LDE_LOG - 6) for col in columns], 2),
-        **bound(ELEM_BYTES * (2 * n_wide + (1 << (LDE_LOG - 6))),
-                OPS_BUTTERFLY * (n_wide // 2)),
-    }
-    out["ntt_dif_local"] = {
-        "shape": shape_text(wide),
-        "ms": cuda_ms(torch, lambda: cn.ntt_dif_local(work, tw, cn.LOCAL_LOG), 10),
-        "plain_ms": cuda_ms(torch, lambda: [
-            cn.dif_local_plain(col, tw, cn.LOCAL_LOG) for col in columns], 1),
-        **bound(ELEM_BYTES * (2 * n_wide + (1 << cn.LOCAL_LOG)),
-                OPS_BUTTERFLY * cn.LOCAL_LOG * (n_wide // 2)),
-    }
+    def narrow(xs, cols):
+        return xs[:, :cols].contiguous()
 
-    # whole NTT (H3 + H4 + bit-reverse) against the plain DIT NTT
+    # the other transforms of both paths: the trace's iNTT (34, 18 and 1
+    # columns of 2^19 points) and the LDE of a composition half (one column
+    # of 2^22 points)
+    trace = random_columns(torch, CAIRO_MAIN_COLS, 1 << FULL_LOG, dev)
+    for group in ((wide, narrow(wide, CAIRO_AUX_COLS)),
+                  (trace, narrow(trace, CAIRO_AUX_COLS), narrow(trace, 1)),
+                  (random_columns(torch, 1, 1 << COMPOSITION_LOG, dev),)):
+        for name, e in ntt.compare(*group).items():
+            errs[name] = max(errs[name], e)
+    del group, trace
+    out.update(ntt.times(wide))
+
+    # whole NTT (the pass list through H3 and H4) against the plain DIT NTT
     for log_n in NTT_LOGS:
         for batch in ((), (3,)):
-            v = random_limbs(torch, rng, batch + ((1 << log_n) - 3,), dev)
+            v = random_columns(torch, (batch or (1,))[0], 1 << log_n,
+                               dev).reshape((16,) + batch + (1 << log_n,))
             fwd = max_abs_err(torch, nttc.ntt(v), cn.ntt_plain(v, False))
             inv_plain = cf.mul_plain(
                 cn.ntt_plain(v, True),
@@ -387,11 +502,32 @@ def phase_kernels(torch, dev) -> dict:
             log(f"[kernels] NTT 2^{log_n} batch {batch or (1,)}: forward "
                 f"max_abs_err {fwd}, inverse max_abs_err {inv}")
             require(fwd == 0 and inv == 0, f"NTT mismatch at 2^{log_n}")
-    v = big_a.reshape(16, lde)
-    whole = bound(2 * ELEM_BYTES * lde, OPS_BUTTERFLY * LDE_LOG * (lde // 2))
-    log(f"[kernels] NTT 2^{LDE_LOG}: {cuda_ms(torch, lambda: nttc.ntt(v), 5):.3f} ms "
-        f"(H3+H4), {cuda_ms(torch, lambda: cn.ntt_plain(v, False), 1):.3f} ms "
-        f"(plain), bound {whole['bound_ms']:.4f} ms by {whole['bound_by']}")
+    for w in (cn.ntt_dif_stages, cn.ntt_dif_local):
+        w.launches = 0
+    nttc.ntt(big_a.reshape(16, lde))
+    log(f"[kernels] NTT 2^{LDE_LOG}: {cn.ntt_dif_stages.launches} H3 + "
+        f"{cn.ntt_dif_local.launches} H4 launches, each one pass over the "
+        f"array; passes {[tuple(p) for p in cn.ntt_passes(LDE_LOG)]}")
+    require(cn.ntt_dif_stages.launches + cn.ntt_dif_local.launches <= 5,
+            "a 2^21-point transform takes more than five passes")
+    whole = {}
+    for tag, v in (("one_column", big_a.reshape(16, lde)), ("cairo_stack", wide)):
+        n_points = v[0].numel()
+        whole[tag] = {
+            "shape": shape_text(v),
+            "ms": cuda_ms(torch, lambda: nttc.ntt(v), 5),
+            # the array read and written once, the table of n twiddles read
+            # once; every stage
+            **bound(2 * ELEM_BYTES * n_points + TWIDDLE_BYTES * lde,
+                    butterfly_ops(n_points, LDE_LOG - 1, LDE_LOG))}
+    whole["one_column"]["plain_ms"] = cuda_ms(
+        torch, lambda: cn.ntt_plain(big_a.reshape(16, lde), False), 1)
+    for tag, r in whole.items():
+        log(f"[kernels] whole NTT at {r['shape']}: {r['ms']:.4f} ms (H3 + H4), "
+            f"{bound_text(r)}"
+            + (f", {r['plain_ms']:.3f} ms plain" if "plain_ms" in r else ""))
+    for name in ("ntt_dif_stages", "ntt_dif_local"):
+        out[name]["whole_ntt"] = whole
     for name, rec in out.items():
         rec["max_abs_err"] = errs[name]  # over every shape compared above
         # no single PyTorch call computes a 256-bit modular product, sum or
@@ -399,9 +535,11 @@ def phase_kernels(torch, dev) -> dict:
         rec["library_ms"] = None
         rec["one_column"] = one[name]
         for r in (rec, one[name]):
-            log(f"[kernels] {name} at {r['shape']}: {r['ms']:.4f} ms kernel, "
-                f"{r['plain_ms']:.4f} ms plain, bound {r['bound_ms']:.4f} ms "
-                f"by {r['bound_by']}")
+            for label, t in ((name, r), (f"{name}, 10 stages in place",
+                                         r.get("ten_stages"))):
+                if t:
+                    log(f"[kernels] {label} at {r['shape']}: {t['ms']:.4f} ms "
+                        f"kernel, {t['plain_ms']:.4f} ms plain, {bound_text(t)}")
     return out
 
 
@@ -461,7 +599,8 @@ def kernel_wrappers() -> dict:
     from lambdaworks_cairo_prover_tpu_torch.ntt import cuda_ntt as cn
 
     return {"mont_mul": cf.mont_mul, "add_sub_mod": cf.add_sub_mod,
-            "ntt_dif_stage": cn.ntt_dif_stage, "ntt_dif_local": cn.ntt_dif_local}
+            "ntt_dif_stages": cn.ntt_dif_stages,
+            "ntt_dif_local": cn.ntt_dif_local}
 
 
 def reset_counts(torch) -> None:
@@ -668,7 +807,7 @@ SOURCES = {
                  "lambdaworks_cairo_prover_tpu/field/pallas_mul.py:126"),
     "add_sub_mod": ("lambdaworks_cairo_prover_tpu_torch/csrc/field_ops.cu",
                     "lambdaworks_cairo_prover_tpu/field/pallas_mul.py:135"),
-    "ntt_dif_stage": ("lambdaworks_cairo_prover_tpu_torch/csrc/ntt.cu",
+    "ntt_dif_stages": ("lambdaworks_cairo_prover_tpu_torch/csrc/ntt.cu",
                       "lambdaworks_cairo_prover_tpu/ntt/fused.py:164"),
     "ntt_dif_local": ("lambdaworks_cairo_prover_tpu_torch/csrc/ntt.cu",
                       "lambdaworks_cairo_prover_tpu/ntt/fused.py:200"),
@@ -691,16 +830,23 @@ def main() -> int:
         return 1
     sys.path.insert(0, ROOT)
     dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
     try:
+        def phase(fn, *args):
+            t0 = time.perf_counter()
+            res = fn(*args)
+            log(f"[total] {fn.__name__} took {time.perf_counter() - t0:.1f} s")
+            return res
+
         phase_card(torch)
-        phase_build()
-        kern = phase_kernels(torch, dev)
-        phase_fixtures(dev)
-        launches_fib = phase_full(torch, dev)
-        phase_cairo_fixture(dev)
-        phase_cairo_aux(torch, dev)
-        launches = phase_cairo_full(torch, dev)
-        phase_cli(dev)
+        phase(phase_build)
+        kern = phase(phase_kernels, torch, dev)
+        phase(phase_fixtures, dev)
+        launches_fib = phase(phase_full, torch, dev)
+        phase(phase_cairo_fixture, dev)
+        phase(phase_cairo_aux, torch, dev)
+        launches = phase(phase_cairo_full, torch, dev)
+        phase(phase_cli, dev)
         bad = sorted(m for m in sys.modules if m.split(".")[0] in
                      ("jax", "jaxlib", "lambdaworks_cairo_prover_tpu"))
         require(not bad, f"imported {bad}")
@@ -717,9 +863,12 @@ def main() -> int:
          "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
          "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
          "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
-         "shape": rec["shape"], "one_column": rec["one_column"]}
+         **{k: v for k, v in rec.items() if k not in (
+             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms")}}
         for name, rec in kern.items()
     ]
+    log(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

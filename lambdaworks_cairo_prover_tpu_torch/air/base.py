@@ -38,7 +38,7 @@ class AIR:
     # -- required overrides -------------------------------------------------
 
     def build_auxiliary_trace(self, main_trace: TraceTable, rap_challenges) -> TraceTable:
-        return TraceTable.empty()
+        return TraceTable.empty(device=main_trace.data.device)
 
     def build_rap_challenges(self, transcript):
         """Returns a tuple of ints (transcript field draws)."""

@@ -32,7 +32,7 @@ class TraceTable:
     # -- constructors -------------------------------------------------------
 
     @classmethod
-    def empty(cls, device="cpu") -> "TraceTable":
+    def empty(cls, *, device) -> "TraceTable":
         return cls(torch.zeros((N_LIMBS, 0, 0), dtype=torch.int32, device=device))
 
     @classmethod

@@ -37,8 +37,8 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "lcp_mont_mul": [_P, _LL, _LL, _LL, _P, _LL, _LL, _LL, _P, _LL, _P],
     "lcp_add_sub": [_I, _P, _LL, _LL, _LL, _P, _LL, _LL, _LL, _P, _LL, _P],
-    "lcp_ntt_dif_stage": [_P, _LL, _I, _I, _P, _LL, _P],
-    "lcp_ntt_dif_local": [_P, _LL, _I, _P, _LL, _P],
+    "lcp_ntt_dif_stages": [_P, _P, _LL, _I, _I, _I, _P, _P],
+    "lcp_ntt_dif_local": [_P, _P, _LL, _I, _I, _I, _P, _P],
 }
 
 

@@ -1,22 +1,29 @@
-"""H3 `ntt_dif_stage` and H4 `ntt_dif_local`: wrappers of the NTT kernels
-(csrc/ntt.cu), their plain PyTorch versions, and the plain NTT.
+"""H3 `ntt_dif_stages` and H4 `ntt_dif_local`: wrappers of the NTT kernels
+(csrc/ntt.cu), their plain PyTorch versions, the pass list both walk, and the
+plain NTT.
 
 Together the two kernels replace the JAX package's five TPU NTT schedules
 (ntt/fused.py: ``_gpair_kernel``, ``_gsingle_kernel``, ``_local_kernel_body``;
 field/pallas_mul.py: ``_butterfly_kernel``, ``_butterfly2_kernel``).  The
 values are fixed by the math — ``ntt(c)[i] = sum_j c_j w^(ij)`` with ``w`` the
 primitive root of order n, natural order — so the CUDA schedule is free:
-decimation in frequency, stages with half-size m >= 2^LOCAL_LOG one H3
-launch each, all smaller stages in one H4 launch, then one bit-reverse
-gather.  The plain NTT on CPU tensors is the radix-2 decimation-in-time
-schedule of the JAX package's ``core._ntt_impl``, on the plain field ops.
+decimation in frequency in a few passes (:func:`ntt_passes`), each of which
+keeps up to 8 stages of a 2^TILE_LOG-point tile in shared memory.  The first
+H3 pass reads the caller's tensor, the last pass (H4) writes natural order
+itself: three passes over the array at 2^21 points, no copy-in and no
+bit-reverse gather.  The plain NTT on CPU tensors is the radix-2
+decimation-in-time schedule of the JAX package's ``core._ntt_impl``, on the
+plain field ops.
 
-Twiddles: one ``(16, n)`` table per direction and device, with
+Twiddles: one ``(16, n)`` limb table per direction and device, with
 ``tw[m + j] = w_{2m}^j`` for every power of two m < n and j < m; a smaller
-transform uses a prefix of a larger table.
+transform uses a prefix of a larger table.  The kernels read the same table
+packed to 8 words of 32 bits an entry, ``(n, 8)`` (:func:`pack_twiddles`).
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -26,9 +33,17 @@ from ..field import cuda_field as cf
 from ..field import device as fd
 from ..field.params import N_LIMBS, P, get_primitive_root_of_unity
 
-LOCAL_LOG = 10  # chunk of H4, as LOCAL_LOG in csrc/ntt.cu
+LOCAL_LOG = 10  # largest chunk of H4, as LOCAL_LOG in csrc/ntt.cu
+TILE_LOG = 11   # points a block keeps in shared memory, as TILE_LOG there
+TILE_BYTES = 8 * 4 * ((1 << TILE_LOG) + (1 << TILE_LOG) // 32)
+LAST_LOG = 7    # chunk of the last pass of a transform above 2^LOCAL_LOG:
+                # 2^(TILE_LOG - LAST_LOG) = 16 chunks a block, so that the
+                # natural-order writes are runs of 16 words
+MAX_STAGES = 8  # of one H3 pass: 256 rows by 8 columns
+MAX_LOG_N = 24
 
 _twiddle_cache: dict = {}  # (inverse, device) -> largest (16, n) table built
+_packed_cache: dict = {}   # (inverse, device) -> largest (n, 8) table built
 _bitrev_cache: dict = {}   # (log_n, device) -> int64 permutation
 
 
@@ -49,6 +64,26 @@ def twiddle_table(log_n: int, inverse: bool, device) -> torch.Tensor:
         tab = torch.cat(parts, dim=1).contiguous()
         _twiddle_cache[key] = tab
     return tab[:, :n]
+
+
+def pack_twiddles(tw: torch.Tensor) -> torch.Tensor:
+    """A (16, n) limb table as the (n, 8) int32 table the kernels read: word
+    k of an entry is limb 2k | limb 2k+1 << 16."""
+    t = tw.to(torch.int64)
+    words = t[0::2] | (t[1::2] << 16)
+    words = torch.where(words >= 1 << 31, words - (1 << 32), words)
+    return words.to(torch.int32).t().contiguous()
+
+
+def packed_twiddle_table(log_n: int, inverse: bool, device) -> torch.Tensor:
+    """(2^log_n, 8) packed view of :func:`twiddle_table`, cached."""
+    key = (inverse, torch.device(device))
+    n = 1 << log_n
+    tab = _packed_cache.get(key)
+    if tab is None or tab.shape[0] < n:
+        tab = pack_twiddles(twiddle_table(log_n, inverse, device))
+        _packed_cache[key] = tab
+    return tab[:n]
 
 
 def bitrev_indices(log_n: int, device) -> torch.Tensor:
@@ -88,11 +123,72 @@ def dif_stage_plain(x: torch.Tensor, tw: torch.Tensor, log_m: int) -> torch.Tens
     return torch.stack([top, bot], dim=3).reshape(N_LIMBS, b, n)
 
 
-def dif_local_plain(x: torch.Tensor, tw: torch.Tensor, log_chunk: int) -> torch.Tensor:
-    """Every DIF stage with m < 2^log_chunk, as H4 runs them."""
-    for log_m in range(log_chunk - 1, -1, -1):
+def dif_stages_plain(x: torch.Tensor, tw: torch.Tensor, log_m_hi: int,
+                     n_stages: int) -> torch.Tensor:
+    """The DIF stages of half-size 2^log_m_hi .. 2^(log_m_hi - n_stages + 1),
+    as one H3 pass runs them."""
+    for log_m in range(log_m_hi, log_m_hi - n_stages, -1):
         x = dif_stage_plain(x, tw, log_m)
     return x
+
+
+def dif_local_plain(x: torch.Tensor, tw: torch.Tensor, log_chunk: int,
+                    natural: bool = False) -> torch.Tensor:
+    """Every DIF stage with m < 2^log_chunk, as H4 runs them.  With
+    ``natural`` the result goes to natural order: after all of a transform's
+    stages, position i holds value bitrev(i)."""
+    x = dif_stages_plain(x, tw, log_chunk - 1, log_chunk)
+    if natural:
+        x = x.index_select(-1, bitrev_indices(_log2(x.shape[-1]), x.device))
+    return x
+
+
+class Pass(NamedTuple):
+    """One pass over the array: the DIF stages of half-size 2^log_m_hi ..
+    2^(log_m_hi - n_stages + 1); ``local`` passes go to H4 (log_m_hi =
+    n_stages - 1), the others to H3; ``natural`` marks the pass that writes
+    natural order."""
+    log_m_hi: int
+    n_stages: int
+    local: bool
+    natural: bool
+
+
+def ntt_passes(log_n: int) -> list:
+    """The passes of a 2^log_n-point transform, first stage first.  Up to
+    2^LOCAL_LOG points it is one H4 launch.  Above, the last pass is H4 on
+    chunks of 2^LAST_LOG, and the stages before it are split evenly over as
+    few H3 passes of at most MAX_STAGES as cover them."""
+    if not 1 <= log_n <= MAX_LOG_N:
+        raise ValueError(f"NTT of 2^{log_n} points: log_n outside [1, {MAX_LOG_N}]")
+    if log_n <= LOCAL_LOG:
+        return [Pass(log_n - 1, log_n, True, True)]
+    n_global = log_n - LAST_LOG
+    n_pass = -(-n_global // MAX_STAGES)
+    passes, hi = [], log_n - 1
+    for i in range(n_pass):
+        r = n_global // n_pass + (1 if i < n_global % n_pass else 0)
+        passes.append(Pass(hi, r, False, False))
+        hi -= r
+    passes.append(Pass(LAST_LOG - 1, LAST_LOG, True, True))
+    return passes
+
+
+def ntt_passes_plain(x: torch.Tensor, inverse: bool) -> torch.Tensor:
+    """Transform along the last axis by the pass list of :func:`ntt_cuda`,
+    each pass through its kernel's plain version."""
+    n = x.shape[-1]
+    log_n = _log2(n)
+    if n == 1:
+        return x.clone()
+    tw = twiddle_table(log_n, inverse, x.device)
+    y = x.reshape(N_LIMBS, -1, n)
+    for p in ntt_passes(log_n):
+        if p.local:
+            y = dif_local_plain(y, tw, p.n_stages, p.natural)
+        else:
+            y = dif_stages_plain(y, tw, p.log_m_hi, p.n_stages)
+    return y.reshape(x.shape)
 
 
 def dit_stage_plain(x: torch.Tensor, tw: torch.Tensor, log_m: int) -> torch.Tensor:
@@ -128,79 +224,99 @@ def ntt_plain(x: torch.Tensor, inverse: bool) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _check(what: str, x: torch.Tensor, tw: torch.Tensor) -> tuple:
-    for name, t in (("x", x), ("tw", tw)):
+def _check(what: str, src: torch.Tensor, dst: torch.Tensor, twp: torch.Tensor) -> tuple:
+    for name, t in (("src", src), ("dst", dst), ("tw", twp)):
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{what}: {name} must be a tensor")
         if t.device.type != "cuda":
             raise ValueError(f"{what}: the CUDA kernel takes CUDA tensors, "
                              f"got {name} on {t.device}")
         if t.dtype != torch.int32:
-            raise TypeError(f"{what}: {name} must be int32 limbs, got {t.dtype}")
-    if tw.device != x.device:
-        raise ValueError(f"{what}: x on {x.device}, tw on {tw.device}")
-    if x.dim() != 3 or x.shape[0] != N_LIMBS or not x.is_contiguous():
-        raise ValueError(f"{what}: x must be a contiguous (16, B, n) tensor, "
-                         f"got {tuple(x.shape)}")
-    n = x.shape[2]
+            raise TypeError(f"{what}: {name} must be int32, got {t.dtype}")
+        if t.device != src.device:
+            raise ValueError(f"{what}: src on {src.device}, {name} on {t.device}")
+    for name, t in (("src", src), ("dst", dst)):
+        if t.dim() != 3 or t.shape[0] != N_LIMBS or not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be a contiguous (16, B, n) "
+                             f"tensor, got {tuple(t.shape)}")
+    if dst.shape != src.shape:
+        raise ValueError(f"{what}: src {tuple(src.shape)}, dst {tuple(dst.shape)}")
+    n = src.shape[2]
     log_n = _log2(n)
-    if tw.dim() != 2 or tw.shape[0] != N_LIMBS or tw.shape[1] < n or tw.stride(1) != 1:
-        raise ValueError(f"{what}: tw must be a (16, >= {n}) table with "
-                         f"unit element stride, got {tuple(tw.shape)}")
-    return n, log_n
+    if (twp.dim() != 2 or twp.shape[1] != 8 or twp.shape[0] < n
+            or not twp.is_contiguous()):
+        raise ValueError(f"{what}: tw must be a contiguous packed (>= {n}, 8) "
+                         f"table (pack_twiddles), got {tuple(twp.shape)}")
+    return src.shape[1], log_n
 
 
-def ntt_dif_stage(x: torch.Tensor, tw: torch.Tensor, log_m: int) -> torch.Tensor:
-    """H3: one DIF stage of half-size 2^log_m, in place on x (16, B, n)."""
-    n, log_n = _check("ntt_dif_stage", x, tw)
-    if not 0 <= log_m < log_n:
-        raise ValueError(f"ntt_dif_stage: log_m {log_m} outside [0, {log_n})")
+def ntt_dif_stages(src: torch.Tensor, dst: torch.Tensor, tw: torch.Tensor,
+                   log_m_hi: int, n_stages: int) -> torch.Tensor:
+    """H3: the DIF stages of half-size 2^log_m_hi .. 2^(log_m_hi - n_stages +
+    1) of src (16, B, n) into dst, which may be src; tw is the packed table."""
+    cols, log_n = _check("ntt_dif_stages", src, dst, tw)
+    if not (1 <= n_stages <= TILE_LOG and n_stages - 1 <= log_m_hi < log_n):
+        raise ValueError(f"ntt_dif_stages: stages {log_m_hi} .. "
+                         f"{log_m_hi - n_stages + 1} of a 2^{log_n}-point NTT")
     lib = cuda_lib.library()
-    with torch.cuda.device(x.device):
-        code = lib.lcp_ntt_dif_stage(
-            x.data_ptr(), x[0].numel(), log_n, log_m, tw.data_ptr(),
-            tw.stride(0), torch.cuda.current_stream().cuda_stream)
-    cuda_lib.check(code, "ntt_dif_stage")
-    ntt_dif_stage.launches += 1
-    return x
+    with torch.cuda.device(src.device):
+        code = lib.lcp_ntt_dif_stages(
+            src.data_ptr(), dst.data_ptr(), cols, log_n, log_m_hi, n_stages,
+            tw.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    cuda_lib.check(code, "ntt_dif_stages")
+    ntt_dif_stages.launches += 1
+    return dst
 
 
-ntt_dif_stage.launches = 0
+ntt_dif_stages.launches = 0
 
 
-def ntt_dif_local(x: torch.Tensor, tw: torch.Tensor, log_chunk: int) -> torch.Tensor:
+def ntt_dif_local(src: torch.Tensor, dst: torch.Tensor, tw: torch.Tensor,
+                  log_chunk: int, natural: bool) -> torch.Tensor:
     """H4: every DIF stage with m < 2^log_chunk on each 2^log_chunk-point
-    chunk of x (16, B, n), in place; 1 <= log_chunk <= min(log n, LOCAL_LOG)."""
-    n, log_n = _check("ntt_dif_local", x, tw)
+    chunk of src (16, B, n) into dst; 1 <= log_chunk <= min(log n, LOCAL_LOG).
+    Without ``natural`` dst may be src (the DIF's bit-reversed order stays);
+    with it dst gets natural order and is another tensor than src, and the
+    chunk is the whole transform or at most 2^LAST_LOG points (a larger one
+    leaves a block too few chunks to write whole sectors)."""
+    cols, log_n = _check("ntt_dif_local", src, dst, tw)
     if not 1 <= log_chunk <= min(log_n, LOCAL_LOG):
         raise ValueError(f"ntt_dif_local: log_chunk {log_chunk} outside "
                          f"[1, {min(log_n, LOCAL_LOG)}]")
+    if natural and dst.data_ptr() == src.data_ptr():
+        raise ValueError("ntt_dif_local: natural order is written out of place")
+    if natural and LAST_LOG < log_chunk < log_n:
+        raise ValueError(f"ntt_dif_local: natural order from chunks of "
+                         f"2^{log_chunk} points of a 2^{log_n}-point array "
+                         f"(at most 2^{LAST_LOG}, or the whole array)")
     lib = cuda_lib.library()
-    with torch.cuda.device(x.device):
+    with torch.cuda.device(src.device):
         code = lib.lcp_ntt_dif_local(
-            x.data_ptr(), x[0].numel(), log_chunk, tw.data_ptr(),
-            tw.stride(0), torch.cuda.current_stream().cuda_stream)
+            src.data_ptr(), dst.data_ptr(), cols, log_n, log_chunk, int(natural),
+            tw.data_ptr(), torch.cuda.current_stream().cuda_stream)
     cuda_lib.check(code, "ntt_dif_local")
     ntt_dif_local.launches += 1
-    return x
+    return dst
 
 
 ntt_dif_local.launches = 0
 
 
 def ntt_cuda(x: torch.Tensor, inverse: bool) -> torch.Tensor:
-    """Transform along the last axis of a CUDA tensor with H3 + H4."""
+    """Transform along the last axis of a CUDA tensor: :func:`ntt_passes`
+    through H3 and H4.  x is only read."""
     n = x.shape[-1]
     log_n = _log2(n)
     if n == 1:
         return x.clone()
-    tw = twiddle_table(log_n, inverse, x.device)
-    lead = x.shape[1:-1]
-    y = torch.empty((N_LIMBS, x[0].numel() // n, n), dtype=torch.int32,
-                    device=x.device)
-    y.copy_(x.reshape(N_LIMBS, -1, n))
-    for log_m in range(log_n - 1, LOCAL_LOG - 1, -1):
-        ntt_dif_stage(y, tw, log_m)
-    ntt_dif_local(y, tw, min(log_n, LOCAL_LOG))
-    y = y.index_select(-1, bitrev_indices(log_n, x.device))
-    return y.reshape((N_LIMBS,) + tuple(lead) + (n,))
+    tw = packed_twiddle_table(log_n, inverse, x.device)
+    src = x.reshape(N_LIMBS, -1, n).contiguous()
+    work = None
+    for p in ntt_passes(log_n):
+        if p.local:
+            src = ntt_dif_local(src, torch.empty_like(src), tw, p.n_stages, p.natural)
+        else:
+            if work is None:
+                work = torch.empty_like(src)
+            src = ntt_dif_stages(src, work, tw, p.log_m_hi, p.n_stages)
+    return src.reshape(x.shape)

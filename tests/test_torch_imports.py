@@ -47,30 +47,34 @@ def _limbs(*shape):
     return torch.zeros((16,) + shape, dtype=torch.int32)
 
 
+def _packed(n):
+    return torch.zeros((n, 8), dtype=torch.int32)
+
+
 @pytest.mark.parametrize("launch", [
     lambda: cf.mont_mul(_limbs(8), _limbs(8)),
     lambda: cf.add_sub_mod(_limbs(8), _limbs(8), "add"),
     lambda: cf.add_sub_mod(_limbs(8), _limbs(8), "sub"),
-    lambda: cn.ntt_dif_stage(_limbs(1, 16), _limbs(16), 3),
-    lambda: cn.ntt_dif_local(_limbs(1, 16), _limbs(16), 4),
-], ids=["mont_mul", "add", "sub", "ntt_dif_stage", "ntt_dif_local"])
+    lambda: cn.ntt_dif_stages(_limbs(1, 16), _limbs(1, 16), _packed(16), 3, 2),
+    lambda: cn.ntt_dif_local(_limbs(1, 16), _limbs(1, 16), _packed(16), 4, True),
+], ids=["mont_mul", "add", "sub", "ntt_dif_stages", "ntt_dif_local"])
 def test_cuda_launchers_refuse_cpu_tensors(launch):
     counts = (cf.mont_mul.launches, cf.add_sub_mod.launches,
-              cn.ntt_dif_stage.launches, cn.ntt_dif_local.launches)
+              cn.ntt_dif_stages.launches, cn.ntt_dif_local.launches)
     with pytest.raises(ValueError, match="CUDA tensors"):
         launch()
     assert "lib" not in cuda_lib._state  # nothing was built or loaded
     assert counts == (cf.mont_mul.launches, cf.add_sub_mod.launches,
-                      cn.ntt_dif_stage.launches, cn.ntt_dif_local.launches)
+                      cn.ntt_dif_stages.launches, cn.ntt_dif_local.launches)
 
 
 def test_public_ops_take_the_plain_path_on_cpu():
     counts = (cf.mont_mul.launches, cf.add_sub_mod.launches,
-              cn.ntt_dif_stage.launches, cn.ntt_dif_local.launches)
+              cn.ntt_dif_stages.launches, cn.ntt_dif_local.launches)
     x = tfd.from_ints(list(range(1, 17)), device="cpu")
     y = tfd.add(tfd.mul(x, x), tfd.sub(x, tfd.neg(x)))
     assert tfd.to_ints(y) == [k * k + 2 * k for k in range(1, 17)]
     assert torch.equal(tnttc.intt(tnttc.ntt(x)), x)
     assert counts == (cf.mont_mul.launches, cf.add_sub_mod.launches,
-                      cn.ntt_dif_stage.launches, cn.ntt_dif_local.launches)
+                      cn.ntt_dif_stages.launches, cn.ntt_dif_local.launches)
     assert "lib" not in cuda_lib._state

@@ -1,10 +1,10 @@
 """NTTs of the PyTorch port against the JAX package.
 
 The port's CPU path (the plain radix-2 NTT, and the plain versions of the
-H3/H4 kernels run in the kernels' DIF schedule) against the JAX transforms,
-the Pallas butterflies in interpret mode, and the fused Pallas NTT through
-digests recorded from it.  Exact comparisons (tolerance 0): the values are
-fixed by the math."""
+H3/H4 kernels walking the pass list of the CUDA path) against the JAX
+transforms, the Pallas butterflies in interpret mode, and the fused Pallas
+NTT through digests recorded from it.  Exact comparisons (tolerance 0): the
+values are fixed by the math."""
 
 import hashlib
 import json
@@ -18,6 +18,9 @@ import jax.numpy as jnp
 
 from lambdaworks_cairo_prover_tpu.field import pallas_mul as pm
 from lambdaworks_cairo_prover_tpu.ntt import core as jnttc
+from lambdaworks_cairo_prover_tpu_torch.field import cuda_field as cf
+from lambdaworks_cairo_prover_tpu_torch.field import device as tfd
+from lambdaworks_cairo_prover_tpu_torch.field.params import P
 from lambdaworks_cairo_prover_tpu_torch.interop import (limbs_from_numpy,
                                                         limbs_to_numpy)
 from lambdaworks_cairo_prover_tpu_torch.ntt import core as tnttc
@@ -53,17 +56,69 @@ def test_transforms_match_jax(log_n):
               lambda c: jnttc.evaluate_on_lde_domain(c, 2, max(n // 2, 1), 3))
 
 
-def _dif_schedule(x: torch.Tensor, inverse: bool) -> torch.Tensor:
-    """The CUDA NTT's schedule (H3 stages, one H4 pass, bit-reverse) run
-    with the kernels' plain versions."""
-    n = x.shape[-1]
-    log_n = n.bit_length() - 1
-    tw = cn.twiddle_table(log_n, inverse, x.device)
-    y = x.reshape(16, 1, n)
-    for log_m in range(log_n - 1, cn.LOCAL_LOG - 1, -1):
-        y = cn.dif_stage_plain(y, tw, log_m)
-    y = cn.dif_local_plain(y, tw, min(log_n, cn.LOCAL_LOG))
-    return y.index_select(-1, cn.bitrev_indices(log_n, x.device)).reshape(x.shape)
+@pytest.mark.parametrize("log_n", range(1, 14))
+def test_pass_list_matches_jax(log_n):
+    """The CUDA path's pass list, walked with the kernels' plain versions,
+    against the JAX transforms on a batch of 2.  The inverse is held against
+    the same JAX output through intt(x)[i] = ntt(x)[-i mod n] / n at every
+    size, and against jnttc.intt itself at the sizes whose compile
+    test_transforms_match_jax shares."""
+    n = 1 << log_n
+    x = rand_limbs(100 + log_n, (2, n))
+    xt = limbs_from_numpy(x, "cpu")
+    fwd = np.asarray(jnttc.ntt(jnp.asarray(x)))
+    assert np.array_equal(limbs_to_numpy(cn.ntt_passes_plain(xt, False)), fwd)
+    n_inv = tfd.from_int(pow(n, P - 2, P), device="cpu").reshape(16, 1, 1)
+    inv = limbs_to_numpy(tfd.mul(cn.ntt_passes_plain(xt, True), n_inv))
+    mirrored = limbs_from_numpy(fwd[..., (-np.arange(n)) % n], "cpu")
+    assert np.array_equal(inv, limbs_to_numpy(tfd.mul(mirrored, n_inv)))
+    if log_n in (1, 3, 6, 9):
+        assert np.array_equal(inv, np.asarray(jnttc.intt(jnp.asarray(x))))
+
+
+@pytest.mark.parametrize("log_n", range(1, cn.MAX_LOG_N + 1))
+def test_pass_list_covers_every_stage_once(log_n):
+    passes = cn.ntt_passes(log_n)
+    stages = [m for p in passes
+              for m in range(p.log_m_hi, p.log_m_hi - p.n_stages, -1)]
+    assert stages == list(range(log_n - 1, -1, -1))
+    assert [p.natural for p in passes] == [False] * (len(passes) - 1) + [True]
+    assert passes[-1].local and not any(p.local for p in passes[:-1])
+    for p in passes:
+        assert p.n_stages <= (cn.LOCAL_LOG if p.local else cn.MAX_STAGES)
+        assert p.n_stages <= cn.TILE_LOG
+    # a block's tile, 8 words a point and a pad word per 32, fits the 227 KB
+    # of shared memory a block may use, three blocks to an SM
+    assert cn.TILE_BYTES == 32 * ((1 << cn.TILE_LOG) * 33 // 32)
+    assert 3 * cn.TILE_BYTES <= 227 * 1024
+    assert len(passes) <= (1 if log_n <= cn.LOCAL_LOG else 4)
+    assert log_n != 21 or len(passes) == 3
+
+
+@pytest.mark.parametrize("log_n,log_m_hi,n_stages",
+                         [(4, 3, 4), (7, 6, 3), (7, 4, 5), (9, 8, 1)])
+def test_plain_stage_passes(log_n, log_m_hi, n_stages):
+    """dif_stages_plain is its stages one by one; dif_local_plain with the
+    natural-order output is the bit-reversal of the one without."""
+    x = limbs_from_numpy(rand_limbs(70 + log_n, (2, 1 << log_n)), "cpu")
+    tw = cn.twiddle_table(log_n, False, "cpu")
+    want = x
+    for log_m in range(log_m_hi, log_m_hi - n_stages, -1):
+        want = cn.dif_stage_plain(want, tw, log_m)
+    assert torch.equal(cn.dif_stages_plain(x, tw, log_m_hi, n_stages), want)
+    local = cn.dif_local_plain(x, tw, n_stages)
+    assert torch.equal(local, cn.dif_stages_plain(x, tw, n_stages - 1, n_stages))
+    assert torch.equal(cn.dif_local_plain(x, tw, n_stages, natural=True),
+                       local[..., cn.bitrev_indices(log_n, "cpu")])
+
+
+def test_packed_twiddles_hold_the_limb_table():
+    tw = cn.twiddle_table(6, True, "cpu")
+    packed = cn.packed_twiddle_table(6, True, "cpu")
+    assert packed.shape == (64, 8) and packed.dtype == torch.int32
+    words = packed.to(torch.int64) & 0xFFFFFFFF
+    assert torch.equal(words.t() & 0xFFFF, tw[0::2].to(torch.int64))
+    assert torch.equal(words.t() >> 16, tw[1::2].to(torch.int64))
 
 
 def _sha256(arr: np.ndarray) -> str:
@@ -95,7 +150,7 @@ def test_plain_ntts_match_fused_pallas(direction):
     xt = _recorded_input(case["seed"], rec["log_n"], case["input_sha256"])
     inverse = direction == "inverse"
     assert _sha256(limbs_to_numpy(cn.ntt_plain(xt, inverse))) == case["output_sha256"]
-    assert _sha256(limbs_to_numpy(_dif_schedule(xt, inverse))) == case["output_sha256"]
+    assert _sha256(limbs_to_numpy(cn.ntt_passes_plain(xt, inverse))) == case["output_sha256"]
 
 
 def test_plain_butterfly_stages_match_pallas():
@@ -117,6 +172,28 @@ def test_plain_butterfly_stages_match_pallas():
         want = np.asarray(jnp.stack([hi, lo], axis=3).reshape(16, 1, n))
         got = limbs_to_numpy(cn.dit_stage_plain(xt, tw, s))
         assert np.array_equal(got, want)
+
+
+def test_plain_dif_pass_undoes_pallas_butterflies():
+    """A DIF stage with twiddle w undoes the DIT butterfly with 1/w up to a
+    factor 2: pallas_mul.butterfly (interpret mode) with the inverse twiddles
+    over stages 0 and 1, then dif_stages_plain over stages 1 and 0 with the
+    forward ones, gives 4x."""
+    log_n, n = 6, 64
+    x = rand_limbs(51, (1, n))
+    jtw = jnttc._stage_twiddles(log_n, True)
+    y = jnp.asarray(x)
+    for s in (0, 1):
+        m = 1 << s
+        yv = y.reshape(16, 1, n // (2 * m), 2, m)
+        hi, lo = pm.butterfly(yv[:, :, :, 0, :], yv[:, :, :, 1, :],
+                              jtw[s][:, None, None, :], interpret=True)
+        y = jnp.stack([hi, lo], axis=3).reshape(16, 1, n)
+    got = cn.dif_stages_plain(limbs_from_numpy(np.asarray(y), "cpu"),
+                              cn.twiddle_table(log_n, False, "cpu"), 1, 2)
+    xt = limbs_from_numpy(x, "cpu")
+    two = cf.add_plain(xt, xt)
+    assert torch.equal(got, cf.add_plain(two, two))
 
 
 def test_plain_stage_pair_matches_pallas_butterfly2():

@@ -38,15 +38,16 @@ CAIRO_FIB_N = 70000  # the cairo_fib workload: 2^19 rows x 52 columns
 GROUPS = (
     ("mont_mul_kernel", "H1 mont_mul"),
     ("add_sub_kernel", "H2 add_sub_mod"),
-    ("ntt_dif_stage_kernel", "H3 ntt_dif_stage"),
+    ("ntt_dif_stages_kernel", "H3 ntt_dif_stages"),
     ("ntt_dif_local_kernel", "H4 ntt_dif_local"),
     ("roll", "PyTorch roll"),
     ("sort", "PyTorch sort"),
     ("Sort", "PyTorch sort"),
-    ("cat", "PyTorch cat / stack"),
-    ("Cat", "PyTorch cat / stack"),
+    # before "cat": _scatter_gather_elementwise_kernel holds that word too
     ("gather", "PyTorch gather / index_select"),
     ("index", "PyTorch gather / index_select"),
+    ("cat", "PyTorch cat / stack"),
+    ("Cat", "PyTorch cat / stack"),
     ("elementwise", "PyTorch elementwise"),
     ("copy", "copies"),
     ("Memcpy", "copies"),
@@ -103,7 +104,7 @@ def main() -> int:
         trace = fibonacci_trace([1, 1], 1 << args.log_rows, device=dev)
     what = f"{args.workload}, {trace.n_rows} rows x {trace.n_cols} main columns"
     wrappers = {"H1 mont_mul": cf.mont_mul, "H2 add_sub_mod": cf.add_sub_mod,
-                "H3 ntt_dif_stage": cn.ntt_dif_stage,
+                "H3 ntt_dif_stages": cn.ntt_dif_stages,
                 "H4 ntt_dif_local": cn.ntt_dif_local}
 
     def run():
