@@ -31,10 +31,22 @@ Phases (any failure exits non-zero):
   8. the Cairo real-size run: generate_prover_args(fibonacci_program(70000))
      -> generate_cairo_proof with the bench options (2^19 rows x 52 columns),
      cold and warm, -> verify_cairo_proof; every kernel must be launched;
-  9. the command line once on the card (prove_and_verify, a child process).
+  9. programs with builtins and hints (``[cairo-hints]``): the proof files
+     of the nine programs of tests/fixtures/torch_port/cairo_programs.json
+     (output, bitwise, pedersen, ecdsa, keccak, poseidon, lt_comparison,
+     signed_div_rem, compare_lesser_array(10)) and of the synthetic CASM
+     contract (the Cairo1 arm) with test options, equal to the JAX
+     package's; compare_lesser_array_program(1200) with the bench options
+     (2^16 rows x 61 columns) at the JAX package's sha256; and the slice's
+     real-size run, compare_lesser_array_program(9600) on the python VM
+     with hints, alloc and the range-check builtin (2^19 rows x 61
+     columns, bench options), cold and warm, verified; every kernel must
+     be launched;
+ 10. the command line once on the card (prove_and_verify, a child process).
 
 The line before the last is a JSON object with, for each kernel, its launch
-count in phase 8 (and in phase 5), its largest disagreement with the plain
+count in phase 9 (and under ``launches_cairo_fib`` in phase 8 and
+``launches_simple_fibonacci`` in phase 5), its largest disagreement with the plain
 version, its time against the plain version's and the least time the card
 could take, at the Cairo run's widest shape (and under ``one_column`` at
 the one-column shape of phase 5), H3 at its widest pass, H4 at the last
@@ -71,6 +83,9 @@ CAIRO_AUX_FIB_N = 500   # 2^12 rows for the RAP build against the host oracle
 CAIRO_MAIN_COLS = 34    # columns that one NTT launch carries on that run
 CAIRO_AUX_COLS = 18
 CAIRO_FLAG_COLS = 15    # the instruction flags, stacked by the constraints
+HINTS_LENGTH = 9600     # compare_lesser_array_program: 518,443 steps, 2^19 rows
+HINTS_MAIN_COLS = 43    # 34 + 9 of the range-check builtin: one NTT launch
+HINTS_COLS = 61         # 43 main (34 + 9 range-check) + 18 auxiliary
 RC_VALUES = (250, 77, 1 << 100)
 
 # The card's peaks (NVIDIA's H100 SXM data sheet): 3.35 TB/s of HBM and 67
@@ -274,7 +289,8 @@ class NttChecks:
         carries them as the path does, and a column's plain result serves
         all): out of place and, but for the natural-order output, in place.
         The plain version goes column by column, which bounds its int64
-        temporaries; its time on xs is kept for :meth:`times`."""
+        temporaries; its time on each stack (the sum over that stack's
+        columns) is kept for :meth:`times`."""
         torch, cn, tw, twp = self.torch, self.cn, self.tw, self.twp
         log_n = xs.shape[2].bit_length() - 1
         cn.bitrev_indices(log_n, xs.device)  # built outside the plain times
@@ -298,14 +314,16 @@ class NttChecks:
                 if not natural:
                     work = t.clone()
                     got.append(run(work, work))
-            ms = 0.0
+            col_ms = []
             for c in range(xs.shape[1]):
                 want, t = timed(torch, lambda: plain(xs[:, c:c + 1]))
-                ms += t
+                col_ms.append(t)
                 errs[name] = max(errs[name], *[
                     max_abs_err(torch, g[:, c:c + 1], want)
                     for g in got if c < g.shape[1]])
-            self.plain_ms[(name, hi, r, natural, shape_text(xs))] = ms
+            for t in (xs,) + narrower:
+                self.plain_ms[(name, hi, r, natural, shape_text(t))] = sum(
+                    col_ms[:t.shape[1]])
         log(f"[kernels] (kernel, first stage, stages, natural order) "
             f"{self.cases(log_n)} vs plain at "
             f"{', '.join(shape_text(t) for t in (xs,) + narrower)}, out of "
@@ -431,8 +449,10 @@ def phase_kernels(torch, dev) -> dict:
     # The Cairo path's shapes.  The constraint and DEEP code hands H1 / H2
     # the 15 stacked flag columns, or a slice of _COL_CHUNK LDE columns,
     # against per-column constants, one shared row, or another stack; one NTT
-    # launch of H3 / H4 carries all 34 main (or 18 auxiliary) LDE columns.
-    wide = random_columns(torch, CAIRO_MAIN_COLS, lde, dev)
+    # launch of H3 / H4 carries all main LDE columns (43 with the
+    # range-check builtin, 34 without) or the 18 auxiliary ones.
+    hints_wide = random_columns(torch, HINTS_MAIN_COLS, lde, dev)
+    wide = hints_wide[:, :CAIRO_MAIN_COLS].contiguous()
     flags = wide[:, :CAIRO_FLAG_COLS].contiguous()
     chunk = wide[:, _COL_CHUNK:2 * _COL_CHUNK]  # a view, as deep_poly slices
     row = wide[:, -1:]
@@ -476,17 +496,24 @@ def phase_kernels(torch, dev) -> dict:
     def narrow(xs, cols):
         return xs[:, :cols].contiguous()
 
-    # the other transforms of both paths: the trace's iNTT (34, 18 and 1
-    # columns of 2^19 points) and the LDE of a composition half (one column
+    # the LDE of the main (43 or 34 columns) and auxiliary trace, the
+    # other transforms of the three paths: the trace's iNTT (43, 34, 18 and
+    # 1 columns of 2^19 points) and the LDE of a composition half (one column
     # of 2^22 points)
-    trace = random_columns(torch, CAIRO_MAIN_COLS, 1 << FULL_LOG, dev)
-    for group in ((wide, narrow(wide, CAIRO_AUX_COLS)),
-                  (trace, narrow(trace, CAIRO_AUX_COLS), narrow(trace, 1)),
+    trace = random_columns(torch, HINTS_MAIN_COLS, 1 << FULL_LOG, dev)
+    for group in ((hints_wide, wide, narrow(hints_wide, CAIRO_AUX_COLS)),
+                  (trace, narrow(trace, CAIRO_MAIN_COLS),
+                   narrow(trace, CAIRO_AUX_COLS), narrow(trace, 1)),
                   (random_columns(torch, 1, 1 << COMPOSITION_LOG, dev),)):
         for name, e in ntt.compare(*group).items():
             errs[name] = max(errs[name], e)
     del group, trace
-    out.update(ntt.times(wide))
+    # the times at the hinted run's stack, whose launches the kernels line
+    # counts, and at the fib(70000) run's
+    out.update(ntt.times(hints_wide))
+    for name, rec in ntt.times(wide).items():
+        out[name]["cairo_fib_stack"] = rec
+    del hints_wide
 
     # whole NTT (the pass list through H3 and H4) against the plain DIT NTT
     for log_n in NTT_LOGS:
@@ -534,7 +561,9 @@ def phase_kernels(torch, dev) -> dict:
         # butterfly, so there is no library time to put beside the kernel's
         rec["library_ms"] = None
         rec["one_column"] = one[name]
-        for r in (rec, one[name]):
+        for r in (rec, rec.get("cairo_fib_stack"), one[name]):
+            if r is None:
+                continue
             for label, t in ((name, r), (f"{name}, 10 stages in place",
                                          r.get("ten_stages"))):
                 if t:
@@ -648,9 +677,10 @@ def phase_full(torch, dev) -> dict:
     return launches
 
 
-def _cairo(program, bench: bool, dev, args=None):
+def _cairo(program, bench: bool, dev, args=None, **run_options):
     """generate_prover_args -> generate_cairo_proof -> verify_cairo_proof on
-    ``dev``; ``args`` reuses an earlier (trace, public inputs)."""
+    ``dev``; ``args`` reuses an earlier (trace, public inputs);
+    ``run_options`` go to generate_prover_args (layout, cairo_version)."""
     from lambdaworks_cairo_prover_tpu_torch.cairo.air import (
         generate_cairo_proof, verify_cairo_proof)
     from lambdaworks_cairo_prover_tpu_torch.cairo.runner import (
@@ -662,7 +692,8 @@ def _cairo(program, bench: bool, dev, args=None):
     options = (ProofOptions(**BENCH) if bench
                else ProofOptions.default_test_options())
     t0 = time.perf_counter()
-    trace, pub = args or generate_prover_args(program, device=dev)
+    trace, pub = args or generate_prover_args(program, device=dev,
+                                              **run_options)
     t_args = time.perf_counter() - t0
     t0 = time.perf_counter()
     proof = generate_cairo_proof(trace, pub, options, device=dev)
@@ -779,6 +810,95 @@ def phase_cairo_full(torch, dev) -> dict:
     return launches
 
 
+def _hints_fixtures(dev) -> None:
+    """The proof files of cairo_programs.json and of the CASM contract,
+    test options, against the JAX package's."""
+    from lambdaworks_cairo_prover_tpu_torch.cairo import programs, stdlib
+    from lambdaworks_cairo_prover_tpu_torch.cairo.runner import (
+        CairoLayout, CairoVersion)
+
+    with open(os.path.join(FIXTURES, "cairo_programs.json")) as f:
+        manifest = json.load(f)["proof_files"]
+    runs = []
+    for name, entry in sorted(manifest.items()):
+        module, gen = entry["program"].split(":")
+        mod = {"cairo/programs.py": programs, "cairo/stdlib.py": stdlib}[module]
+        runs.append((name, getattr(mod, gen)(*entry["args"]),
+                     {"layout": CairoLayout[entry["layout"]]}))
+    with open(os.path.join(FIXTURES, "synthetic_contract.casm"), "rb") as f:
+        runs.append(("cairo1_synthetic_test_options.proof", f.read(),
+                     {"cairo_version": CairoVersion.V1}))
+    for name, program, options in runs:
+        with open(os.path.join(FIXTURES, name), "rb") as f:
+            ref = f.read()
+        res = _cairo(program, bench=False, dev=dev, **options)
+        log(f"[cairo-hints] {name}: {res['trace'].n_rows} rows x "
+            f"{res['columns']} columns, {res['trace']._timings['vm_name']} "
+            f"VM, {len(res['file'])} bytes, equal to the JAX proof file: "
+            f"{res['file'] == ref}")
+        require(res["file"] == ref, f"{name}: bytes differ from the JAX fixture")
+
+
+def phase_cairo_hints(torch, dev) -> dict:
+    """Programs with builtins and hints: the fixtures, the 2^16-row digest
+    and the slice's real-size run at 2^19 rows x 61 columns."""
+    from lambdaworks_cairo_prover_tpu_torch.cairo import stdlib
+
+    _hints_fixtures(dev)
+    with open(os.path.join(
+            FIXTURES, "cairo_compare_lesser_array_bench_digest.json")) as f:
+        digest = json.load(f)
+    require(digest["options"] == BENCH, "rc digest fixture has other options")
+    res = _cairo(stdlib.compare_lesser_array_program(digest["length"]),
+                 bench=True, dev=dev)
+    got = hashlib.sha256(res["bytes"]).hexdigest()
+    log(f"[cairo-hints] compare_lesser_array_program({digest['length']}), "
+        f"bench options: {res['trace'].n_rows} rows x {res['columns']} "
+        f"columns, {len(res['bytes'])} bytes, prove {res['prove_s']:.3f} s, "
+        f"sha256 {got}, equal to the JAX digest: {got == digest['sha256']}")
+    require((res["trace"].n_rows, res["columns"]) ==
+            (digest["trace_rows"], digest["trace_columns"]),
+            "trace shape differs from the JAX fixture's")
+    require(res["pub"].serialize().hex() == digest["public_inputs_hex"],
+            "public inputs differ from the JAX fixture's")
+    require(got == digest["sha256"], "rc bench proof differs from the JAX digest")
+
+    program = stdlib.compare_lesser_array_program(HINTS_LENGTH)
+    reset_counts(torch)
+    cold = _cairo(program, bench=True, dev=dev)
+    launches = read_counts("cairo-hints")
+    peak = torch.cuda.max_memory_allocated()
+    warm = _cairo(program, bench=True, dev=dev,
+                  args=(cold["trace"], cold["pub"]))
+    require(warm["bytes"] == cold["bytes"], "cold and warm hinted proofs differ")
+    trace, stages = cold["trace"], cold["trace"]._timings
+    require((trace.n_rows, cold["columns"]) == (1 << FULL_LOG, HINTS_COLS),
+            f"expected 2^{FULL_LOG} rows x {HINTS_COLS} columns, got "
+            f"{trace.n_rows} x {cold['columns']}")
+    require(stages["vm_name"] == "python", "the hinted program left the "
+            "python VM")
+    log(f"[cairo-hints] compare_lesser_array_program({HINTS_LENGTH}): "
+        f"{cold['pub'].num_steps} steps, {trace.n_rows} rows x "
+        f"{cold['columns']} columns ({trace.n_cols} main), blowup 4, 80 "
+        f"queries, coset 3, grinding 20")
+    log(f"[cairo-hints] {stages['vm_name']} VM {stages['vm']:.3f} s")
+    log(f"[cairo-hints] trace build {stages['trace_build']:.3f} s (host)")
+    log(f"[cairo-hints] ingest {stages['ingest']:.3f} s; "
+        f"generate_prover_args {cold['args_s']:.3f} s")
+    for tag, r in (("cold", cold), ("warm", warm)):
+        log(f"[cairo-hints] {tag} prove {r['prove_s']:.3f} s")
+        rounds = ", ".join(f"{k} {v:.3f}" for k, v in r["timings"].items())
+        log(f"[cairo-hints] {tag} rounds: {rounds}")
+        log(f"[cairo-hints] {tag} verify {r['verify_s']:.3f} s, accepted; "
+            f"wrong public inputs rejected")
+    log(f"[cairo-hints] proof size {len(cold['bytes'])} bytes, sha256 "
+        f"{hashlib.sha256(cold['bytes']).hexdigest()}; with public inputs "
+        f"{len(cold['file'])} bytes; cold equals warm")
+    log(f"[cairo-hints] torch.cuda.max_memory_allocated {peak} bytes "
+        f"({peak / 2**30:.2f} GiB)")
+    return launches
+
+
 def phase_cli(dev) -> None:
     """The command line as a user runs it: a child process, CUDA by default."""
     import tempfile
@@ -845,7 +965,8 @@ def main() -> int:
         launches_fib = phase(phase_full, torch, dev)
         phase(phase_cairo_fixture, dev)
         phase(phase_cairo_aux, torch, dev)
-        launches = phase(phase_cairo_full, torch, dev)
+        launches_cairo_fib = phase(phase_cairo_full, torch, dev)
+        launches = phase(phase_cairo_hints, torch, dev)
         phase(phase_cli, dev)
         bad = sorted(m for m in sys.modules if m.split(".")[0] in
                      ("jax", "jaxlib", "lambdaworks_cairo_prover_tpu"))
@@ -859,6 +980,7 @@ def main() -> int:
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1], "launches": launches[name],
+         "launches_cairo_fib": launches_cairo_fib[name],
          "launches_simple_fibonacci": launches_fib[name],
          "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
          "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],

@@ -95,8 +95,9 @@ def run_vm(program: Program):
 
     The C++ VM (bit-identical outputs) does the per-step interpretation far
     faster; it handles the output and range-check builtin segments.
-    Anything else goes to the python VM, which runs callable hints and
-    raises for what this package does not hold yet."""
+    Programs with hints or deduction builtins (bitwise, pedersen, ec_op,
+    keccak, poseidon, ecdsa) go to the python VM, which holds the hint
+    processor and the deduction rules."""
     if (native_vm.available()
             and set(program.builtins) <= {"output", "range_check"}
             and not program.hints):
@@ -113,24 +114,33 @@ def generate_prover_args(program: Program | bytes | str, output_range=None,
     ``main_trace._timings`` holds the seconds of each stage ("vm",
     "trace_build", "ingest") and which VM ran ("vm_name").
 
-    ``cairo_version=CairoVersion.V1`` (a compiled CASM contract class) needs
-    cairo/casm.py, which is not in this package yet: it raises.
+    ``cairo_version=CairoVersion.V1`` treats `program` as a compiled CASM
+    contract class and runs its first EXTERNAL entrypoint on the python VM
+    (reference run.rs:242-263 with the V1 arm of run_program).
 
-    ``layout`` defaults as the reference does (run.rs:247-250: V0 -> Small)
-    and is validated against the program's declared builtins."""
+    ``layout`` defaults per version as the reference does (run.rs:247-250:
+    V0 -> Small, V1 -> Plain).  For V0 it is validated against the
+    program's declared builtins; the V1 entrypoint path ignores it —
+    contract builtins come from the entrypoint record, not the layout,
+    mirroring cairo-vm's run_from_entrypoint."""
     device = proving_device(device)
-    if cairo_version is CairoVersion.V1:
-        raise CairoVMError(
-            "Cairo1 (CASM) programs need cairo/casm.py: that module is not "
-            "ported to this package yet")
-    if not isinstance(program, Program):
-        program = Program.from_json(program)
-    if layout is None:
-        layout = CairoLayout.Small  # reference run.rs:247-250
-    validate_layout(program, layout)
     t0 = time.perf_counter()
-    vm_name, register_states, memory, program_size, builtin_ranges = (
-        run_vm(program))
+    if cairo_version is CairoVersion.V1:
+        from .casm import CasmContractClass, run_casm_entrypoint
+
+        casm = (program if isinstance(program, CasmContractClass)
+                else CasmContractClass.from_json(program))
+        vm_name = "python"
+        register_states, memory, program_size, builtin_ranges = (
+            run_casm_entrypoint(casm))
+    else:
+        if not isinstance(program, Program):
+            program = Program.from_json(program)
+        if layout is None:
+            layout = CairoLayout.Small  # reference run.rs:247-250
+        validate_layout(program, layout)
+        vm_name, register_states, memory, program_size, builtin_ranges = (
+            run_vm(program))
     vm_seconds = time.perf_counter() - t0
 
     memory_segments = {}

@@ -4,14 +4,13 @@ reference, src/cairo/runner/run.rs:64-240).
 Executes compiled Cairo0 programs (the `cairo-compile` JSON format) from the
 `main` entrypoint in non-proof mode, with segment-relocated output matching
 cairo-vm's binary trace (`ap fp pc` u64 LE rows) and memory (`addr value`)
-encodings, so the downstream trace code sees identical data.
+encodings, so the downstream trace builder sees identical data.
 
 Supported: the full deterministic instruction set (assert_eq with memory
-deduction, call/ret, jumps, jnz, ap updates, immediates) and the output /
-range-check builtin segments.  The auto-deduction builtins (bitwise,
-pedersen, ec_op, keccak, poseidon, ecdsa: cairo/builtins.py) and compiled
-programs' hints (cairo/hints.py) are not in this package yet: a program that
-needs either raises `CairoVMError` naming the missing module."""
+deduction, call/ret, jumps, jnz, ap updates, immediates), the output /
+range-check builtin segments, the auto-deduction builtins (bitwise,
+pedersen, ec_op, keccak, poseidon) and the ecdsa signature cells
+(builtins.py), and the compiled-program hints (hints.py, hints_stdlib.py)."""
 
 from __future__ import annotations
 
@@ -23,7 +22,7 @@ from .cairo_mem import CairoMemory
 from .decode import (
     AP_ADD, AP_ADD1, AP_REGULAR, InstructionFlags, InstructionOffsets,
     OP1_SRC_AP, OP1_SRC_FP, OP1_SRC_IMM, OP1_SRC_OP0, OPCODE_ASSERT_EQ,
-    OPCODE_CALL, OPCODE_RET, PC_JNZ, PC_JUMP, PC_JUMP_REL,
+    OPCODE_CALL, OPCODE_NOP, OPCODE_RET, PC_JNZ, PC_JUMP, PC_JUMP_REL,
     PC_REGULAR, RES_ADD, RES_MUL, RES_OP1,
 )
 from .register_states import RegistersState, RegisterStates
@@ -45,9 +44,7 @@ class Relocatable:
         return Relocatable(self.segment, self.offset - n)
 
 
-# builtins whose cells are deduced or validated by cairo/builtins.py
-_DEDUCTION_BUILTINS = ("bitwise", "pedersen", "ec_op", "keccak", "poseidon",
-                       "ecdsa")
+MaybeRelocatable = object  # int (felt) or Relocatable
 
 
 @dataclass
@@ -55,8 +52,10 @@ class Program:
     data: list[int]
     main_pc: int
     builtins: list[str] = field(default_factory=list)
-    # pc-offset -> callable(vm, ap, fp), run before the instruction at that pc
+    # pc-offset -> [hints.Hint]; executed before the instruction at that pc
     hints: dict = field(default_factory=dict)
+    # hints.Reference list indexed by the hints' reference_ids
+    references: list = field(default_factory=list)
 
     @classmethod
     def from_json(cls, content: bytes | str) -> "Program":
@@ -66,12 +65,12 @@ class Program:
         main = idents.get("__main__.main")
         if main is None:
             raise CairoVMError("program has no __main__.main")
-        if any(obj.get("hints", {}).values()):
-            raise CairoVMError(
-                "the program has hints, which need cairo/hints.py: that "
-                "module is not ported to this package yet")
+        from .hints import parse_program_hints
+
+        hints, references = parse_program_hints(obj)
         return cls(data=data, main_pc=main["pc"],
-                   builtins=obj.get("builtins", []))
+                   builtins=obj.get("builtins", []), hints=hints,
+                   references=references)
 
 
 class CairoVM:
@@ -80,10 +79,50 @@ class CairoVM:
         # segmented memory: dict[(segment, offset)] -> int | Relocatable
         self.segments: list[dict[int, object]] = []
         self.trace: list[tuple[Relocatable, Relocatable, Relocatable]] = []
-        # pc-offset (program segment) -> callable(vm, ap, fp), executed
-        # before the instruction at that pc, mirroring cairo-vm hint hooks
+        # pc-offset (program segment) -> callable(vm, ap, fp) OR a list of
+        # hints.Hint; executed before the instruction at that pc, mirroring
+        # cairo-vm hint hooks.  Seeded from the compiled program's hints.
         self.hints: dict[int, object] = dict(program.hints)
         self.builtin_bases: dict[str, Relocatable] = {}
+        # segment index -> deduction rule (builtins.DEDUCERS), mirroring
+        # cairo-vm's deduce_memory_cell on first read of an output cell
+        self._deducers: dict[int, object] = {}
+        # ecdsa SignatureBuiltinRunner state: segments under signature
+        # validation + (segment, instance_base_offset) -> (r, s) provided by
+        # the verify_ecdsa_signature hint (cairo-vm add_signature)
+        self._signature_segments: set[int] = set()
+        self.signatures: dict[tuple[int, int], tuple[int, int]] = {}
+        # hint execution scopes (cairo-vm ExecutionScopes): a stack of dicts
+        # manipulated by the vm_enter_scope()/vm_exit_scope() hints; the
+        # root scope holds process-wide hint state (e.g. __dict_manager)
+        self.exec_scopes: list[dict] = [{}]
+
+    # -- hint execution scopes ------------------------------------------------
+
+    def enter_scope(self, new_vars: dict | None = None) -> None:
+        self.exec_scopes.append(dict(new_vars or {}))
+
+    def exit_scope(self) -> None:
+        if len(self.exec_scopes) <= 1:
+            raise CairoVMError("vm_exit_scope() with no scope to exit")
+        self.exec_scopes.pop()
+
+    def scope_get(self, name: str, default=None):
+        """Nearest-enclosing-scope lookup (superset of cairo-vm's
+        current-scope-only rule; keeps hand-built fixtures simple)."""
+        for scope in reversed(self.exec_scopes):
+            if name in scope:
+                return scope[name]
+        return default
+
+    def scope_get_local(self, name: str, default=None):
+        """Current-scope-only lookup — cairo-lang hint globals ARE the
+        innermost scope, so semantically sensitive names (initial_dict,
+        __find_element_index) must not leak in from enclosing scopes."""
+        return self.exec_scopes[-1].get(name, default)
+
+    def scope_set(self, name: str, value) -> None:
+        self.exec_scopes[-1][name] = value
 
     # -- segment helpers ----------------------------------------------------
 
@@ -91,8 +130,23 @@ class CairoVM:
         self.segments.append({})
         return Relocatable(len(self.segments) - 1, 0)
 
+    def get_range(self, addr: Relocatable, size: int) -> list:
+        """[mem[addr], ..., mem[addr+size-1]] (cairo-vm memory.get_range)."""
+        return [self.mem_get(addr + i) for i in range(size)]
+
     def mem_get(self, addr: Relocatable):
-        return self.segments[addr.segment].get(addr.offset)
+        seg = self.segments[addr.segment]
+        v = seg.get(addr.offset)
+        if v is None:
+            deduce = self._deducers.get(addr.segment)
+            if deduce is not None:
+                try:
+                    v = deduce(seg, addr.offset)
+                except ValueError as e:
+                    raise CairoVMError(str(e))
+                if v is not None:
+                    seg[addr.offset] = v  # reaches relocated memory
+        return v
 
     def mem_set(self, addr: Relocatable, value) -> None:
         seg = self.segments[addr.segment]
@@ -100,6 +154,50 @@ class CairoVM:
         if existing is not None and existing != value:
             raise CairoVMError(f"memory write conflict at {addr}")
         seg[addr.offset] = value
+        if addr.segment in self._signature_segments:
+            self._validate_signature_cell(addr)
+
+    # -- ecdsa signature builtin (cairo-vm SignatureBuiltinRunner) ----------
+
+    def add_signature(self, addr: Relocatable, rs: tuple[int, int]) -> None:
+        """Register (r, s) for the instance at `addr` (the pub_key cell) —
+        the stdlib verify_ecdsa_signature hint's `ecdsa_builtin
+        .add_signature(ids.ecdsa_ptr, (r, s))`."""
+        from .builtins import ECDSA_CELLS_PER_INSTANCE as SZ
+
+        if addr.segment not in self._signature_segments:
+            raise CairoVMError(
+                f"add_signature outside the ecdsa segment: {addr}")
+        if addr.offset % SZ:
+            raise CairoVMError(
+                f"add_signature at a non-instance-base offset: {addr}")
+        self.signatures[(addr.segment, addr.offset)] = (int(rs[0]),
+                                                        int(rs[1]))
+
+    def _validate_signature_cell(self, addr: Relocatable) -> None:
+        """cairo-vm validation rule: once BOTH cells of a [pub_key, message]
+        instance are present, the hint-provided signature must exist and
+        verify on the STARK curve."""
+        from .builtins import ECDSA_CELLS_PER_INSTANCE as SZ
+        from .builtins import verify_ecdsa
+
+        seg = self.segments[addr.segment]
+        base = addr.offset - addr.offset % SZ
+        pub = seg.get(base)
+        msg = seg.get(base + 1)
+        if pub is None or msg is None:
+            return  # incomplete instance: validated when the pair completes
+        if isinstance(pub, Relocatable) or isinstance(msg, Relocatable):
+            raise CairoVMError("ecdsa builtin cells must be felts")
+        rs = self.signatures.get((addr.segment, base))
+        if rs is None:
+            raise CairoVMError(
+                f"signature hint is missing for ECDSA builtin at "
+                f"segment {addr.segment} offset {base}")
+        if not verify_ecdsa(pub, msg, rs[0], rs[1]):
+            raise CairoVMError(
+                f"invalid ECDSA signature at segment {addr.segment} offset "
+                f"{base}: r={rs[0]:#x} s={rs[1]:#x}")
 
     # -- run ---------------------------------------------------------------
 
@@ -110,14 +208,16 @@ class CairoVM:
         for i, word in enumerate(prog.data):
             self.mem_set(program_base + i, word)
 
+        from .builtins import DEDUCERS
+
         stack: list[object] = []
         for name in prog.builtins:
-            if name in _DEDUCTION_BUILTINS:
-                raise CairoVMError(
-                    f"the {name} builtin needs cairo/builtins.py: that "
-                    "module is not ported to this package yet")
             base = self.add_segment()
             self.builtin_bases[name] = base
+            if name in DEDUCERS:
+                self._deducers[base.segment] = DEDUCERS[name]
+            if name == "ecdsa":
+                self._signature_segments.add(base.segment)
             stack.append(base)
 
         return_fp = self.add_segment()
@@ -133,20 +233,26 @@ class CairoVM:
 
     def run_until(self, pc, ap, fp, end, max_steps: int = 1 << 24):
         """Step until pc == end (cairo-vm `run_until_pc`), executing any
-        registered hints (callables ``f(vm, ap, fp)``) before each
-        instruction."""
+        registered hints before each instruction.
+
+        Hint entries may be legacy callables ``f(vm, ap, fp)`` or lists of
+        `hints.Hint` parsed from a compiled program's `hints` section
+        (resolved against the program's reference manager)."""
+        from .hints import Hint, execute_hint
+
         steps = 0
         hints = self.hints
+        refs = self.program.references
         while pc != end:
             if steps >= max_steps:
                 raise CairoVMError("maximum steps exceeded")
             if hints and pc.segment == 0 and pc.offset in hints:
                 entry = hints[pc.offset]
-                if not callable(entry):
-                    raise CairoVMError(
-                        "compiled hints need cairo/hints.py: that module is "
-                        "not ported to this package yet")
-                entry(self, ap, fp)
+                if callable(entry):
+                    entry(self, ap, fp)
+                else:
+                    for h in entry:
+                        execute_hint(self, h, refs, ap, fp)
             pc, ap, fp = self.step(pc, ap, fp)
             steps += 1
         # final registers are recorded by the last step's next-state in trace

@@ -8,6 +8,7 @@ byte-identical to the JAX package's."""
 
 from __future__ import annotations
 
+import os
 import time
 
 import torch
@@ -190,6 +191,16 @@ def prove(
     if not aux_trace.is_empty():
         _sync(device)
         timings["round1_aux_build"] = time.perf_counter() - t1a
+    if os.environ.get("LCP_VALIDATE_TRACE"):
+        # Reference prover.rs:573-580 runs the pointwise constraint oracle on
+        # every debug-build prove; here it is env-gated (it is O(n·constraints)
+        # host work) and a failure aborts with a typed error instead of
+        # letting a faulty AIR or trace surface only as a failed verify.
+        from .debug import validate_trace
+
+        if not validate_trace(air, main_trace, aux_trace, rap_challenges):
+            raise ProvingError("trace does not satisfy the AIR constraints")
+    if not aux_trace.is_empty():
         aux_polys, aux_lde, aux_levels = kern.interpolate_commit(
             aux_trace.data.to(device))
         trace_polys = torch.cat([trace_polys, aux_polys], dim=1)

@@ -1,5 +1,6 @@
-"""The PyTorch port stands apart from JAX and from Triton, and its CUDA
-launchers refuse CPU tensors before anything is built or launched."""
+"""The PyTorch port stands apart from JAX, from the JAX package and from
+Triton, and its CUDA launchers refuse CPU tensors before anything is built
+or launched."""
 
 import os
 import subprocess
@@ -22,15 +23,18 @@ import lambdaworks_cairo_prover_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
-assert len(names) > 40, names
+assert len(names) > 50, names
 for mod in ("cli", "interop", "air.trace", "cairo.air", "cairo.cairo_mem",
             "cairo.decode", "cairo.execution_trace", "cairo.native",
             "cairo.programs", "cairo.register_states", "cairo.runner",
-            "cairo.vm"):
+            "cairo.vm", "cairo.builtins", "cairo.hints", "cairo.hints_stdlib",
+            "cairo.stdlib", "cairo.casm", "air.examples.fibonacci_2_columns",
+            "air.examples.quadratic_air", "air.examples.fibonacci_rap",
+            "air.examples.dummy_air", "ntt.poly_host", "prover.debug"):
     assert pkg.__name__ + "." + mod in names, mod
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "triton")
-             or m.startswith("lambdaworks_cairo_prover_tpu."))
+             if m.split(".")[0] in ("jax", "jaxlib", "triton",
+                                    "lambdaworks_cairo_prover_tpu"))
 assert not bad, bad
 print("imported", len(names))
 """

@@ -3,13 +3,18 @@
 Run once on a CPU host with JAX installed:
 
     JAX_PLATFORMS=cpu python tools/make_torch_fixtures.py [--budget 900] \
-        [--logs 19 18 17 16] [--cairo-fibs 8000 2000 500]
+        [--only PART ...] [--logs 19 18 17 16] [--cairo-fibs 8000 2000 500] \
+        [--jobs 1]
+
+``--only`` names the parts to write (all by default): ``small``, ``bench``,
+``fused``, ``butterfly2``, ``cairo``, ``examples``, ``programs``, ``casm``,
+``rc``, in the order of the list below.
 
 Writes into tests/fixtures/torch_port/:
 
 * ``simple_fibonacci_1024_test_options.proof`` — serialized bytes of the
   JAX proof of ``simple_fibonacci`` at 2^10 rows, ``default_test_options()``.
-* ``simple_fibonacci_bench_digest.json`` — the sha256 of the JAX proof at the
+* ``simple_fibonacci_bench_digest.json`` (``bench``) — the sha256 of the JAX proof at the
   largest trace length (tried in the order of ``--logs``) that the JAX package
   proves on this host within ``--budget`` seconds, with the bench options
   (blowup 4, 80 FRI queries, coset offset 3, grinding 20).  The file states
@@ -33,7 +38,32 @@ Writes into tests/fixtures/torch_port/:
   ``--budget`` seconds with the bench options, and of its serialized public
   inputs.  The file states ``n`` and the trace's rows and columns.
 
-Each Cairo proof is made in a child process of its own.  The port's tests
+* ``cairo_<name>_test_options.proof`` — the JAX package's proof files, as
+  above, of the programs with builtins or hints in ``CAIRO_PROGRAMS``
+  (``cairo/programs.py``: output, bitwise, pedersen, ecdsa, keccak,
+  poseidon; ``cairo/stdlib.py``: lt_comparison, signed_div_rem,
+  compare_lesser_array(10)), each on its layout, and
+  ``cairo_programs.json``: for each file the generator, its arguments (the
+  ecdsa signature made by the JAX package's ``ecdsa_sign``), the layout,
+  the trace's rows and columns.
+* ``cairo_compare_lesser_array_bench_digest.json`` — the sha256 and size of
+  the JAX proof of ``compare_lesser_array_program(RC_LENGTH)`` (2^16 rows x
+  61 columns: the range-check builtin) with the bench options, and its
+  serialized public inputs in hex.
+* ``synthetic_contract.casm`` and ``cairo1_synthetic_test_options.proof`` —
+  a small CASM contract class (:func:`synthetic_casm`: Cairo1 core hints
+  ``TestLessThan``, ``AllocSegment`` and ``DivMod``, a range-check cell),
+  and the JAX package's proof file of it, run through the ``CairoVersion.V1``
+  arm of ``generate_prover_args`` with ``default_test_options()``.  No
+  compiled Cairo1 contract is in the repository.
+* ``example_<air>_test_options.proof`` — the JAX proofs
+  (``serialize_proof``) of the example AIRs ``fibonacci_2_columns``,
+  ``quadratic_air``, ``fibonacci_rap`` and ``dummy_air`` as
+  ``tests/test_examples.py`` makes them (16 steps), with
+  ``default_test_options()``.
+
+Each Cairo or example proof is made in a child process of its own;
+``--jobs`` runs that many at once.  The port's tests
 and ``chip_smoke.py`` compare their own outputs with these
 files.
 """
@@ -68,6 +98,31 @@ CAIRO_SMALL = {
     "cairo_fib5_test_options.proof": ("fibonacci_program", (5,)),
     "cairo_rc_test_options.proof": ("rc_program", (RC_VALUES,)),
 }
+# the ecdsa program's signature: key, message and nonce of
+# tests/test_ecdsa_builtin.py
+ECDSA_PRIV, ECDSA_MSG, ECDSA_K = 0x12345678ABCDEF, 0xDEADBEEFCAFE, 0x6789ABCDEF012345
+CAIRO_PROGRAMS_NAME = "cairo_programs.json"
+# name -> (module of the JAX package's cairo/, generator, its arguments,
+# layout); "ECDSA_SIG" stands for the signature made in the child
+CAIRO_PROGRAMS = {
+    "output": ("programs", "output_program", (), "Small"),
+    "bitwise": ("programs", "bitwise_program", (), "Recursive"),
+    "pedersen": ("programs", "pedersen_program", (), "Small"),
+    "ecdsa": ("programs", "ecdsa_program", ("ECDSA_SIG",), "Small"),
+    "keccak": ("programs", "keccak_program", (), "StarknetWithKeccak"),
+    "poseidon": ("programs", "poseidon_program", (), "Starknet"),
+    "lt_comparison": ("stdlib", "lt_comparison_program", (), "Small"),
+    "signed_div_rem": ("stdlib", "signed_div_rem_program", (), "Small"),
+    "compare_lesser_array_10": ("stdlib", "compare_lesser_array_program",
+                                (10,), "Small"),
+}
+RC_DIGEST_NAME = "cairo_compare_lesser_array_bench_digest.json"
+RC_LENGTH = 1200  # 64,843 steps: 2^16 rows
+CASM_NAME = "synthetic_contract.casm"
+CASM_PROOF_NAME = "cairo1_synthetic_test_options.proof"
+EXAMPLES = ("fibonacci_2_columns", "quadratic_air", "fibonacci_rap",
+            "dummy_air")
+EXAMPLE_STEPS = 16
 
 
 def fused_input(seed: int, log_n: int = FUSED_LOG):
@@ -196,37 +251,239 @@ def _bench_worker(log_n: int, queue) -> None:
                time.perf_counter() - t0))
 
 
-def _cairo_worker(generator: str, gen_args: tuple, bench: bool, queue) -> None:
-    """Prove a program of cairo/programs.py with the JAX package; queues
-    (proof bytes, public-input bytes, rows, columns, seconds)."""
+def _program_worker(module: str, generator: str, gen_args: tuple,
+                    layout: str, bench: bool, queue) -> None:
+    """Prove a program of cairo/programs.py or cairo/stdlib.py on ``layout``
+    with the JAX package; queues (proof bytes, public-input bytes, rows,
+    columns, seconds, the generator's arguments)."""
+    import importlib
+
     sys.path.insert(0, ROOT)
-    from lambdaworks_cairo_prover_tpu.cairo import programs
     from lambdaworks_cairo_prover_tpu.cairo.air import generate_cairo_proof
-    from lambdaworks_cairo_prover_tpu.cairo.runner import generate_prover_args
+    from lambdaworks_cairo_prover_tpu.cairo.builtins import (
+        EC_GEN, _ec_mul, ecdsa_sign)
+    from lambdaworks_cairo_prover_tpu.cairo.runner import (
+        CairoLayout, generate_prover_args)
     from lambdaworks_cairo_prover_tpu.proof.options import ProofOptions
     from lambdaworks_cairo_prover_tpu.proof.serde import serialize_proof
 
     t0 = time.perf_counter()
+    if gen_args == ("ECDSA_SIG",):
+        r, s = ecdsa_sign(ECDSA_PRIV, ECDSA_MSG, ECDSA_K)
+        gen_args = ([(_ec_mul(ECDSA_PRIV, EC_GEN)[0], ECDSA_MSG, r, s)],)
+    mod = importlib.import_module(f"lambdaworks_cairo_prover_tpu.cairo.{module}")
     options = (ProofOptions(**BENCH_OPTIONS) if bench
                else ProofOptions.default_test_options())
-    trace, pub = generate_prover_args(getattr(programs, generator)(*gen_args))
+    trace, pub = generate_prover_args(getattr(mod, generator)(*gen_args),
+                                      layout=CairoLayout[layout])
     proof = generate_cairo_proof(trace, pub, options)
-    columns = len(proof.trace_ood_frame_evaluations[0])  # main + auxiliary
+    columns = len(proof.trace_ood_frame_evaluations[0])
     queue.put((serialize_proof(proof), pub.serialize(), trace.n_rows,
-               columns, time.perf_counter() - t0))
+               columns, time.perf_counter() - t0, gen_args))
+
+
+def synthetic_casm() -> str:
+    """The JSON of a CASM contract class with one EXTERNAL entrypoint
+    (builtins: range_check): a TestLessThan hint whose result the next
+    instruction asserts, an AllocSegment hint, a DivMod hint in its
+    ``{"Core": ...}`` framing, a write of 100 to the range-check segment,
+    ``ret``.  Encoded with the JAX package's instruction encoder."""
+    sys.path.insert(0, ROOT)
+    from lambdaworks_cairo_prover_tpu.cairo import decode as D
+    from lambdaworks_cairo_prover_tpu.cairo import programs as PR
+    from lambdaworks_cairo_prover_tpu.field.params import P
+
+    def cell(reg, off):
+        return {"register": reg, "offset": off}
+
+    def imm(v):
+        return {"Immediate": hex(v)}
+
+    keep_ap = D.encode_instruction(  # [ap] = [ap]; ap++
+        off_dst=0, off_op0=-1, off_op1=0, dst_reg=0, op0_reg=0,
+        op1_src=D.OP1_SRC_AP, res_logic=D.RES_OP1, pc_update=D.PC_REGULAR,
+        ap_update=D.AP_ADD1, opcode=D.OPCODE_ASSERT_EQ)
+    code, hints = [], []
+    hints.append([len(code), [{"TestLessThan": {
+        "lhs": imm(5), "rhs": imm(10), "dst": cell("AP", 0)}}]])
+    code += PR.push_imm(1)
+    hints.append([len(code), [{"AllocSegment": {"dst": cell("AP", 0)}}]])
+    code += [keep_ap]
+    hints.append([len(code), [{"Core": {"DivMod": {
+        "lhs": imm(1000), "rhs": imm(7), "quotient": cell("AP", 0),
+        "remainder": cell("AP", 1)}}}]])
+    code += PR.push_imm(142) + PR.push_imm(6)
+    code += [PR.copy_fp(-7)] + PR.push_imm(100) + [PR._deref_write(-2, 0)]
+    code += [PR.RET]
+    return json.dumps({
+        "prime": hex(P), "bytecode": [hex(w) for w in code], "hints": hints,
+        "entry_points_by_type": {
+            "EXTERNAL": [{"selector": "0x0", "offset": 0,
+                          "builtins": ["range_check"]}],
+            "L1_HANDLER": [], "CONSTRUCTOR": []}}, indent=1)
+
+
+def _casm_worker(text: str, queue) -> None:
+    """Prove a CASM contract class through the V1 arm with the JAX package;
+    queues (proof bytes, public-input bytes, rows, columns, seconds)."""
+    sys.path.insert(0, ROOT)
+    from lambdaworks_cairo_prover_tpu.cairo.air import generate_cairo_proof
+    from lambdaworks_cairo_prover_tpu.cairo.runner import (
+        CairoVersion, generate_prover_args)
+    from lambdaworks_cairo_prover_tpu.proof.options import ProofOptions
+    from lambdaworks_cairo_prover_tpu.proof.serde import serialize_proof
+
+    t0 = time.perf_counter()
+    trace, pub = generate_prover_args(text, cairo_version=CairoVersion.V1)
+    proof = generate_cairo_proof(trace, pub,
+                                 ProofOptions.default_test_options())
+    queue.put((serialize_proof(proof), pub.serialize(), trace.n_rows,
+               len(proof.trace_ood_frame_evaluations[0]),
+               time.perf_counter() - t0))
+
+
+def _write_casm_fixtures(budget: float) -> None:
+    text = synthetic_casm()
+    with open(os.path.join(OUT_DIR, CASM_NAME), "w") as f:
+        f.write(text + "\n")
+    print(f"wrote {CASM_NAME}", flush=True)
+    result = _in_child(_casm_worker, (text,), budget)
+    if result is None:
+        print(f"{CASM_PROOF_NAME}: failed or over the budget", flush=True)
+        return
+    proof_bytes, pub_bytes, rows, cols, seconds = result
+    _write_proof_file(CASM_PROOF_NAME, proof_bytes, pub_bytes)
+    print(f"wrote {CASM_PROOF_NAME}: {rows} rows x {cols} columns, proof "
+          f"{len(proof_bytes)} B, {seconds:.1f} s", flush=True)
+
+
+def _example_worker(air_name: str, queue) -> None:
+    """Prove an example AIR as tests/test_examples.py does; queues (proof
+    bytes, rows, seconds)."""
+    sys.path.insert(0, ROOT)
+    from lambdaworks_cairo_prover_tpu.air.examples import (
+        dummy_air, fibonacci_2_columns, fibonacci_rap, quadratic_air)
+    from lambdaworks_cairo_prover_tpu.proof.options import ProofOptions
+    from lambdaworks_cairo_prover_tpu.proof.serde import serialize_proof
+    from lambdaworks_cairo_prover_tpu.prover.prove import prove
+
+    n = EXAMPLE_STEPS
+    trace, pub, air = {
+        "fibonacci_2_columns": lambda: (
+            fibonacci_2_columns.fibonacci_trace_2_columns([1, 1], n),
+            fibonacci_2_columns.Fibonacci2PublicInputs(a0=1, a1=1),
+            fibonacci_2_columns.Fibonacci2ColsAIR),
+        "quadratic_air": lambda: (
+            quadratic_air.quadratic_trace(3, n),
+            quadratic_air.QuadraticPublicInputs(a0=3),
+            quadratic_air.QuadraticAIR),
+        "fibonacci_rap": lambda: (
+            fibonacci_rap.fibonacci_rap_trace([1, 1], n),
+            fibonacci_rap.FibonacciRAPPublicInputs(steps=n, a0=1, a1=1),
+            fibonacci_rap.FibonacciRAP),
+        "dummy_air": lambda: (dummy_air.dummy_trace(n), None,
+                              dummy_air.DummyAIR),
+    }[air_name]()
+    t0 = time.perf_counter()
+    proof = prove(trace, pub, ProofOptions.default_test_options(), air)
+    queue.put((serialize_proof(proof), trace.n_rows,
+               time.perf_counter() - t0))
+
+
+def _in_children(jobs: list, budget: float, n_jobs: int) -> list:
+    """``_in_child`` for each (target, args) of ``jobs``, ``n_jobs`` at a
+    time; the results in the order of ``jobs``."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(max(1, n_jobs)) as pool:
+        return list(pool.map(lambda job: _in_child(*job, budget), jobs))
+
+
+def _write_proof_file(name: str, proof_bytes: bytes, pub_bytes: bytes) -> None:
+    with open(os.path.join(OUT_DIR, name), "wb") as f:
+        # the framing of proof/serde.py:write_proof_file
+        f.write(len(proof_bytes).to_bytes(8, "big") + proof_bytes + pub_bytes)
+
+
+def _write_program_fixtures(budget: float, n_jobs: int) -> None:
+    jobs = [(_program_worker, (module, gen, gen_args, layout, False))
+            for module, gen, gen_args, layout in CAIRO_PROGRAMS.values()]
+    manifest = {}
+    for name, result in zip(CAIRO_PROGRAMS,
+                            _in_children(jobs, budget, n_jobs)):
+        if result is None:
+            print(f"cairo program {name}: failed or over the budget",
+                  flush=True)
+            continue
+        proof_bytes, pub_bytes, rows, cols, seconds, gen_args = result
+        module, gen, _, layout = CAIRO_PROGRAMS[name]
+        file_name = f"cairo_{name}_test_options.proof"
+        _write_proof_file(file_name, proof_bytes, pub_bytes)
+        manifest[file_name] = {
+            "program": f"cairo/{module}.py:{gen}", "args": gen_args,
+            "layout": layout, "trace_rows": rows, "trace_columns": cols,
+            "proof_bytes": len(proof_bytes),
+            "jax_cpu_seconds": round(seconds, 1)}
+        print(f"wrote {file_name}: {rows} rows x {cols} columns, proof "
+              f"{len(proof_bytes)} B, {seconds:.1f} s", flush=True)
+    _write_json(CAIRO_PROGRAMS_NAME, {
+        "options": "default_test_options()",
+        "made_by": "lambdaworks_cairo_prover_tpu (JAX) on CPU",
+        "proof_files": manifest})
+
+
+def _write_rc_digest(budget: float) -> None:
+    print(f"bench-options compare_lesser_array_program({RC_LENGTH}) "
+          f"(budget {budget:.0f} s)...", flush=True)
+    result = _in_child(_program_worker, (
+        "stdlib", "compare_lesser_array_program", (RC_LENGTH,), "Small", True),
+        budget)
+    if result is None:
+        print(f"{RC_DIGEST_NAME}: failed or over the budget", flush=True)
+        return
+    proof_bytes, pub_bytes, rows, cols, seconds, _ = result
+    _write_json(RC_DIGEST_NAME, {
+        "program": "cairo/stdlib.py:compare_lesser_array_program"
+                   f"({RC_LENGTH})",
+        "length": RC_LENGTH,
+        "layout": "Small",
+        "trace_rows": rows,
+        "trace_columns": cols,
+        "options": BENCH_OPTIONS,
+        "sha256": hashlib.sha256(proof_bytes).hexdigest(),
+        "proof_bytes": len(proof_bytes),
+        "public_inputs_sha256": hashlib.sha256(pub_bytes).hexdigest(),
+        "public_inputs_bytes": len(pub_bytes),
+        "public_inputs_hex": pub_bytes.hex(),
+        "made_by": "lambdaworks_cairo_prover_tpu (JAX) on CPU",
+        "jax_cpu_seconds": round(seconds, 1),
+    })
+
+
+def _write_example_fixtures(budget: float, n_jobs: int) -> None:
+    results = _in_children([(_example_worker, (air,)) for air in EXAMPLES],
+                           budget, n_jobs)
+    for air, result in zip(EXAMPLES, results):
+        name = f"example_{air}_test_options.proof"
+        if result is None:
+            print(f"{name}: failed or over the budget", flush=True)
+            continue
+        proof_bytes, rows, seconds = result
+        with open(os.path.join(OUT_DIR, name), "wb") as f:
+            f.write(proof_bytes)
+        print(f"wrote {name}: {rows} rows, proof {len(proof_bytes)} B, "
+              f"{seconds:.1f} s", flush=True)
 
 
 def _write_cairo_fixtures(budget: float, fibs: list[int]) -> None:
     for name, (generator, gen_args) in CAIRO_SMALL.items():
-        result = _in_child(_cairo_worker, (generator, gen_args, False), budget)
+        result = _in_child(_program_worker, (
+            "programs", generator, gen_args, "Small", False), budget)
         if result is None:
             print(f"{name}: failed or over the budget", flush=True)
             continue
-        proof_bytes, pub_bytes, rows, cols, seconds = result
-        with open(os.path.join(OUT_DIR, name), "wb") as f:
-            # the framing of proof/serde.py:write_proof_file
-            f.write(len(proof_bytes).to_bytes(8, "big") + proof_bytes
-                    + pub_bytes)
+        proof_bytes, pub_bytes, rows, cols, seconds, _ = result
+        _write_proof_file(name, proof_bytes, pub_bytes)
         print(f"wrote {name}: {rows} rows x {cols} columns, proof "
               f"{len(proof_bytes)} B, {seconds:.1f} s", flush=True)
 
@@ -234,14 +491,14 @@ def _write_cairo_fixtures(budget: float, fibs: list[int]) -> None:
     for n in fibs:
         print(f"bench-options Cairo fibonacci_program({n}) "
               f"(budget {budget:.0f} s)...", flush=True)
-        result = _in_child(_cairo_worker, ("fibonacci_program", (n,), True),
-                           budget)
+        result = _in_child(_program_worker, (
+            "programs", "fibonacci_program", (n,), "Small", True), budget)
         if result is None:
             print(f"  fib({n}): failed or did not finish within the budget",
                   flush=True)
             not_proved[str(n)] = f"failed or over the {budget:.0f} s budget"
             continue
-        proof_bytes, pub_bytes, rows, cols, seconds = result
+        proof_bytes, pub_bytes, rows, cols, seconds, _ = result
         _write_json(CAIRO_DIGEST_NAME, {
             "program": f"cairo/programs.py:fibonacci_program({n})",
             "n": n,
@@ -257,54 +514,28 @@ def _write_cairo_fixtures(budget: float, fibs: list[int]) -> None:
             "larger_programs_not_proved": not_proved,
         })
         return
-    if fibs:
-        print("no bench-options Cairo program finished within the budget",
-              flush=True)
+    print("no bench-options Cairo program finished within the budget",
+          flush=True)
 
 
-def main() -> None:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--budget", type=float, default=900.0,
-                    help="seconds allowed for each proof or digest run")
-    ap.add_argument("--logs", type=int, nargs="*", default=[19, 18, 17, 16],
-                    help="log2 trace lengths to try, largest first")
-    ap.add_argument("--skip-small", action="store_true")
-    ap.add_argument("--skip-fused", action="store_true")
-    ap.add_argument("--skip-butterfly2", action="store_true")
-    ap.add_argument("--cairo-fibs", type=int, nargs="*",
-                    default=[8000, 2000, 500],
-                    help="n of fibonacci_program(n) to try with the bench "
-                    "options, largest first (none: no Cairo fixtures)")
-    args = ap.parse_args()
-    os.makedirs(OUT_DIR, exist_ok=True)
+PARTS = ("small", "bench", "fused", "butterfly2", "cairo", "examples",
+         "programs", "casm", "rc")
 
-    if not args.skip_small:
-        data = _prove_bytes(10, bench=False)
-        with open(os.path.join(OUT_DIR, SMALL_NAME), "wb") as f:
-            f.write(data)
-        print(f"wrote {SMALL_NAME}: {len(data)} bytes", flush=True)
-    if not args.skip_fused:
-        _write_json(FUSED_NAME, _in_child(_fused_worker, (), args.budget))
-    if not args.skip_butterfly2:
-        _write_json(BUTTERFLY2_NAME,
-                    _in_child(_butterfly2_worker, (), args.budget))
 
-    if args.cairo_fibs:
-        _write_cairo_fixtures(args.budget, args.cairo_fibs)
-
+def _write_bench_digest(budget: float, logs: list[int]) -> None:
     not_proved = {}
-    for log_n in args.logs:
+    for log_n in logs:
         print(f"bench-options prove at 2^{log_n} rows "
-              f"(budget {args.budget:.0f} s)...", flush=True)
-        result = _in_child(_bench_worker, (log_n,), args.budget)
+              f"(budget {budget:.0f} s)...", flush=True)
+        result = _in_child(_bench_worker, (log_n,), budget)
         if result is None:
             print(f"  2^{log_n}: failed or did not finish within the budget",
                   flush=True)
             not_proved[str(1 << log_n)] = (
-                f"failed or over the {args.budget:.0f} s budget")
+                f"failed or over the {budget:.0f} s budget")
             continue
         digest, size, seconds = result
-        record = {
+        _write_json(DIGEST_NAME, {
             "air": "simple_fibonacci",
             "initial_values": [1, 1],
             "trace_length": 1 << log_n,
@@ -314,14 +545,52 @@ def main() -> None:
             "made_by": "lambdaworks_cairo_prover_tpu (JAX) on CPU",
             "jax_cpu_seconds": round(seconds, 1),
             "larger_sizes_not_proved": not_proved,
-        }
-        with open(os.path.join(OUT_DIR, DIGEST_NAME), "w") as f:
-            json.dump(record, f, indent=1)
-            f.write("\n")
-        print(f"wrote {DIGEST_NAME}: {record}", flush=True)
+        })
         return
-    if args.logs:
-        print("no bench-options size finished within the budget", flush=True)
+    print("no bench-options size finished within the budget", flush=True)
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--budget", type=float, default=900.0,
+                    help="seconds allowed for each proof or digest run")
+    ap.add_argument("--only", nargs="+", choices=PARTS, default=PARTS,
+                    help="the parts to write (default: all)")
+    ap.add_argument("--logs", type=int, nargs="+", default=[19, 18, 17, 16],
+                    help="log2 trace lengths to try for the simple_fibonacci "
+                    "digest, largest first")
+    ap.add_argument("--cairo-fibs", type=int, nargs="+",
+                    default=[8000, 2000, 500],
+                    help="n of fibonacci_program(n) to try for the Cairo "
+                    "digest, largest first")
+    ap.add_argument("--jobs", type=int, default=1,
+                    help="child processes at once for the small proofs")
+    args = ap.parse_args()
+    os.makedirs(OUT_DIR, exist_ok=True)
+    parts = set(args.only)
+
+    if "small" in parts:
+        data = _prove_bytes(10, bench=False)
+        with open(os.path.join(OUT_DIR, SMALL_NAME), "wb") as f:
+            f.write(data)
+        print(f"wrote {SMALL_NAME}: {len(data)} bytes", flush=True)
+    if "bench" in parts:
+        _write_bench_digest(args.budget, args.logs)
+    if "fused" in parts:
+        _write_json(FUSED_NAME, _in_child(_fused_worker, (), args.budget))
+    if "butterfly2" in parts:
+        _write_json(BUTTERFLY2_NAME,
+                    _in_child(_butterfly2_worker, (), args.budget))
+    if "cairo" in parts:
+        _write_cairo_fixtures(args.budget, args.cairo_fibs)
+    if "examples" in parts:
+        _write_example_fixtures(args.budget, args.jobs)
+    if "programs" in parts:
+        _write_program_fixtures(args.budget, args.jobs)
+    if "casm" in parts:
+        _write_casm_fixtures(args.budget)
+    if "rc" in parts:
+        _write_rc_digest(args.budget)
 
 
 if __name__ == "__main__":

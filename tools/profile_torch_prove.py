@@ -3,13 +3,15 @@
 
 Run from the root of the repository on a machine with a CUDA GPU:
 
-    python3 tools/profile_torch_prove.py [--workload simple_fibonacci|cairo_fib]
+    python3 tools/profile_torch_prove.py [--workload simple_fibonacci|cairo_fib|cairo_hints]
         [--log-rows 19] [--repeats 3] [--out DIR]
 
 ``--workload simple_fibonacci`` (the default) proves the one-column example
 AIR at 2^``--log-rows`` rows; ``--workload cairo_fib`` runs the Cairo program
 ``fibonacci_program(70000)`` through ``generate_prover_args`` (2^19 rows x 52
-columns) and proves its trace with ``generate_cairo_proof``.
+columns) and proves its trace with ``generate_cairo_proof``;
+``--workload cairo_hints`` does the same with the hinted range-check program
+``compare_lesser_array_program(9600)`` (python VM, 2^19 rows x 61 columns).
 
 Proves once to build the kernels and tables, then ``--repeats`` times on
 the host clock (each prove ends in copies to the host, so the device work
@@ -33,6 +35,7 @@ import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CAIRO_FIB_N = 70000  # the cairo_fib workload: 2^19 rows x 52 columns
+HINTS_LENGTH = 9600  # the cairo_hints workload: 2^19 rows x 61 columns
 
 # kernel-name fragment -> group; the first match wins, the rest is "other"
 GROUPS = (
@@ -57,7 +60,8 @@ GROUPS = (
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--workload", choices=("simple_fibonacci", "cairo_fib"),
+    ap.add_argument("--workload", choices=("simple_fibonacci", "cairo_fib",
+                                           "cairo_hints"),
                     default="simple_fibonacci")
     ap.add_argument("--log-rows", type=int, default=19,
                     help="simple_fibonacci: log2 of the trace length")
@@ -79,6 +83,8 @@ def main() -> int:
         fibonacci_program)
     from lambdaworks_cairo_prover_tpu_torch.cairo.runner import (
         generate_prover_args)
+    from lambdaworks_cairo_prover_tpu_torch.cairo.stdlib import (
+        compare_lesser_array_program)
     from lambdaworks_cairo_prover_tpu_torch.field import cuda_field as cf
     from lambdaworks_cairo_prover_tpu_torch.ntt import cuda_ntt as cn
     from lambdaworks_cairo_prover_tpu_torch.proof.options import ProofOptions
@@ -91,13 +97,17 @@ def main() -> int:
     options = ProofOptions(blowup_factor=4, fri_number_of_queries=80,
                            coset_offset=3, grinding_factor=20)
     dev = torch.device("cuda", 0)
-    if args.workload == "cairo_fib":
+    if args.workload in ("cairo_fib", "cairo_hints"):
         air_class = CairoAIR
-        trace, pub = generate_prover_args(fibonacci_program(CAIRO_FIB_N),
-                                          device=dev)
+        program, name = (
+            (fibonacci_program(CAIRO_FIB_N), f"fibonacci_program({CAIRO_FIB_N})")
+            if args.workload == "cairo_fib" else
+            (compare_lesser_array_program(HINTS_LENGTH),
+             f"compare_lesser_array_program({HINTS_LENGTH})"))
+        trace, pub = generate_prover_args(program, device=dev)
         stages = ", ".join(f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
                            for k, v in trace._timings.items())
-        print(f"[trace] fibonacci_program({CAIRO_FIB_N}): {stages}", flush=True)
+        print(f"[trace] {name}: {stages}", flush=True)
     else:
         air_class = FibonacciAIR
         pub = FibonacciPublicInputs(a0=1, a1=1)
