@@ -31,21 +31,34 @@ Phases (any failure exits non-zero):
   8. the Cairo real-size run: generate_prover_args(fibonacci_program(70000))
      -> generate_cairo_proof with the bench options (2^19 rows x 52 columns),
      cold and warm, -> verify_cairo_proof; every kernel must be launched;
+     then both FRI commit routes (``[fri-routes]``): a warm prove whose
+     on-device FRI chain runs under torch.cuda.set_sync_debug_mode("error")
+     (no host sync before its one readback), and a warm prove through the
+     per-layer route (a DefaultTranscript subclass), byte-equal to the
+     others; round4_fri_commit of both routes;
   9. programs with builtins and hints (``[cairo-hints]``): the proof files
      of the nine programs of tests/fixtures/torch_port/cairo_programs.json
      (output, bitwise, pedersen, ecdsa, keccak, poseidon, lt_comparison,
      signed_div_rem, compare_lesser_array(10)) and of the synthetic CASM
      contract (the Cairo1 arm) with test options, equal to the JAX
-     package's; compare_lesser_array_program(1200) with the bench options
-     (2^16 rows x 61 columns) at the JAX package's sha256; and the slice's
-     real-size run, compare_lesser_array_program(9600) on the python VM
-     with hints, alloc and the range-check builtin (2^19 rows x 61
-     columns, bench options), cold and warm, verified; every kernel must
-     be launched;
- 10. the command line once on the card (prove_and_verify, a child process).
+     package's; a hinted extra, compare_lesser_array_program(1200) with the
+     bench options (2^16 rows x 61 columns), at the JAX package's sha256;
+     and the slice's real-size run, compare_lesser_array_program(9600) on
+     the python VM with hints, alloc and the range-check builtin (2^19 rows
+     x 61 columns, bench options), cold and warm, verified; every kernel
+     must be launched; both FRI commit routes as in phase 8;
+ 10. bench.py's rc workload (``BASELINE`` config 3): rc_program with the
+     value count that bench.py's calibration loop (copied into
+     tools/make_torch_fixtures.py) finds for 2^16 rows, bench options, at
+     the JAX package's sha256
+     (tests/fixtures/torch_port/cairo_rc_bench_digest.json);
+ 11. the toy field: a child process with LCP_FIELD=f257 proves
+     simple_fibonacci at 8 rows on the card, byte-equal to the JAX
+     package's GF(257) proof, verifies it, and launches none of H1-H4;
+ 12. the command line once on the card (prove_and_verify, a child process).
 
 The line before the last is a JSON object with, for each kernel, its launch
-count in phase 9 (and under ``launches_cairo_fib`` in phase 8 and
+count in phase 9's cold prove (and under ``launches_cairo_fib`` in phase 8 and
 ``launches_simple_fibonacci`` in phase 5), its largest disagreement with the plain
 version, its time against the plain version's and the least time the card
 could take, at the Cairo run's widest shape (and under ``one_column`` at
@@ -87,6 +100,8 @@ HINTS_LENGTH = 9600     # compare_lesser_array_program: 518,443 steps, 2^19 rows
 HINTS_MAIN_COLS = 43    # 34 + 9 of the range-check builtin: one NTT launch
 HINTS_COLS = 61         # 43 main (34 + 9 range-check) + 18 auxiliary
 RC_VALUES = (250, 77, 1 << 100)
+RC_LOG_ROWS = 16        # bench.py's rc workload: 2^16 rows
+TOY_ROWS = 8            # simple_fibonacci over GF(257): an LDE of 32 points
 
 # The card's peaks (NVIDIA's H100 SXM data sheet): 3.35 TB/s of HBM and 67
 # TFLOP/s of float32 outside the tensor cores, i.e. 33.5e12 FMA instructions
@@ -774,6 +789,61 @@ def phase_cairo_aux(torch, dev) -> None:
     require(err == 0, "the device RAP build differs from the host oracle")
 
 
+def fri_routes(torch, dev, tag: str, res: dict, warm: dict) -> None:
+    """Both FRI commit routes on the trace of ``res`` (a cold Cairo prove)
+    after the warm prove ``warm`` (the chain route): a prove whose chain
+    runs under torch.cuda.set_sync_debug_mode("error") with every table
+    built, so that any host sync before the chain's one readback raises;
+    and a prove through the per-layer route (a DefaultTranscript subclass,
+    which the chain's gate sends there).  All proofs byte-equal."""
+    from lambdaworks_cairo_prover_tpu_torch.cairo.air import CairoAIR
+    from lambdaworks_cairo_prover_tpu_torch.proof.options import ProofOptions
+    from lambdaworks_cairo_prover_tpu_torch.proof.serde import serialize_proof
+    from lambdaworks_cairo_prover_tpu_torch.prover import kernels as pk
+    from lambdaworks_cairo_prover_tpu_torch.prover.prove import prove
+    from lambdaworks_cairo_prover_tpu_torch.transcript import DefaultTranscript
+
+    class PerLayerTranscript(DefaultTranscript):
+        pass
+
+    options = ProofOptions(**BENCH)
+    chain = pk.ProverKernels.fri_commit_chain
+    chain_ms = []
+
+    def guarded(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out, ms = timed(torch, lambda: chain(self, *args, **kwargs))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        chain_ms.append(ms)
+        return out
+
+    pk.ProverKernels.fri_commit_chain = guarded
+    try:
+        guarded_proof = prove(res["trace"], res["pub"], options, CairoAIR,
+                              device=dev)
+    finally:
+        pk.ProverKernels.fri_commit_chain = chain
+    require(len(chain_ms) == 1, f"[{tag}] the prove did not take the chain")
+    layered = prove(res["trace"], res["pub"], options, CairoAIR, device=dev,
+                    transcript_factory=PerLayerTranscript)
+    require(serialize_proof(guarded_proof) == res["bytes"],
+            f"[{tag}] the proof under the sync check differs")
+    require(serialize_proof(layered) == res["bytes"],
+            f"[{tag}] the per-layer FRI route gives other proof bytes")
+    log(f"[{tag}] FRI chain under set_sync_debug_mode('error'): no host sync "
+        f"before its readback ({chain_ms[0]:.1f} ms queued and run); proofs "
+        f"of both routes byte-equal")
+    log(f"[{tag}] round4_fri_commit: chain route "
+        f"{warm['timings']['round4_fri_commit']:.4f} s "
+        f"(warm prove {warm['prove_s']:.3f} s), per-layer route "
+        f"{layered._timings['round4_fri_commit']:.4f} s (round4 "
+        f"{layered._timings['round4']:.3f} s); chain under the sync check "
+        f"{guarded_proof._timings['round4_fri_commit']:.4f} s")
+
+
 def phase_cairo_full(torch, dev) -> dict:
     from lambdaworks_cairo_prover_tpu_torch.cairo import programs
 
@@ -807,6 +877,9 @@ def phase_cairo_full(torch, dev) -> dict:
             f"proof size {len(cold['bytes'])} != {CAIRO_FIB_PROOF_BYTES}")
     log(f"[cairo-full] torch.cuda.max_memory_allocated {peak} bytes "
         f"({peak / 2**30:.2f} GiB)")
+    reset_counts(torch)
+    fri_routes(torch, dev, "fri-routes cairo-full", cold, warm)
+    read_counts("fri-routes cairo-full")
     return launches
 
 
@@ -848,12 +921,14 @@ def phase_cairo_hints(torch, dev) -> dict:
     with open(os.path.join(
             FIXTURES, "cairo_compare_lesser_array_bench_digest.json")) as f:
         digest = json.load(f)
-    require(digest["options"] == BENCH, "rc digest fixture has other options")
+    require(digest["options"] == BENCH, "hinted digest fixture has other "
+            "options")
     res = _cairo(stdlib.compare_lesser_array_program(digest["length"]),
                  bench=True, dev=dev)
     got = hashlib.sha256(res["bytes"]).hexdigest()
-    log(f"[cairo-hints] compare_lesser_array_program({digest['length']}), "
-        f"bench options: {res['trace'].n_rows} rows x {res['columns']} "
+    log(f"[cairo-hints] hinted extra compare_lesser_array_program("
+        f"{digest['length']}), bench options: {res['trace'].n_rows} rows x "
+        f"{res['columns']} "
         f"columns, {len(res['bytes'])} bytes, prove {res['prove_s']:.3f} s, "
         f"sha256 {got}, equal to the JAX digest: {got == digest['sha256']}")
     require((res["trace"].n_rows, res["columns"]) ==
@@ -861,7 +936,8 @@ def phase_cairo_hints(torch, dev) -> dict:
             "trace shape differs from the JAX fixture's")
     require(res["pub"].serialize().hex() == digest["public_inputs_hex"],
             "public inputs differ from the JAX fixture's")
-    require(got == digest["sha256"], "rc bench proof differs from the JAX digest")
+    require(got == digest["sha256"], "the hinted 2^16-row bench proof "
+            "differs from the JAX digest")
 
     program = stdlib.compare_lesser_array_program(HINTS_LENGTH)
     reset_counts(torch)
@@ -896,7 +972,121 @@ def phase_cairo_hints(torch, dev) -> dict:
         f"{len(cold['file'])} bytes; cold equals warm")
     log(f"[cairo-hints] torch.cuda.max_memory_allocated {peak} bytes "
         f"({peak / 2**30:.2f} GiB)")
+    reset_counts(torch)
+    fri_routes(torch, dev, "fri-routes cairo-hints", cold, warm)
+    read_counts("fri-routes cairo-hints")
     return launches
+
+
+def phase_rc(dev) -> None:
+    """bench.py's rc workload at 2^16 rows against the JAX digest: the value
+    count from bench.py's calibration loop, as the fixture tool copies it
+    (``rc_value_count``: it takes the package's program, VM and
+    ``generate_prover_args``, here the port's)."""
+    import functools
+
+    from lambdaworks_cairo_prover_tpu_torch.cairo import native as native_vm
+    from lambdaworks_cairo_prover_tpu_torch.cairo.programs import rc_program
+    from lambdaworks_cairo_prover_tpu_torch.cairo.runner import (
+        generate_prover_args)
+    from lambdaworks_cairo_prover_tpu_torch.cairo.vm import run_program
+
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    from make_torch_fixtures import rc_value_count, rc_values
+
+    with open(os.path.join(FIXTURES, "cairo_rc_bench_digest.json")) as f:
+        digest = json.load(f)
+    require(digest["options"] == BENCH and digest["log2_rows"] == RC_LOG_ROWS,
+            "the rc digest fixture has other options or rows")
+    runner = (native_vm.run_program_native if native_vm.available()
+              else run_program)
+    t0 = time.perf_counter()
+    k = rc_value_count(rc_program, runner,
+                       functools.partial(generate_prover_args, device=dev),
+                       RC_LOG_ROWS)
+    t_cal = time.perf_counter() - t0
+    require(k == digest["k"],
+            f"calibrated {k} values, the JAX package {digest['k']}")
+    res = _cairo(rc_program(rc_values(k)), bench=True, dev=dev)
+    got = hashlib.sha256(res["bytes"]).hexdigest()
+    log(f"[rc] bench.py's rc program, {k} values (calibrated in {t_cal:.2f} "
+        f"s, as the JAX package): {res['trace'].n_rows} rows x "
+        f"{res['columns']} columns, {res['trace']._timings['vm_name']} VM, "
+        f"bench options, {len(res['bytes'])} bytes, prove {res['prove_s']:.3f} "
+        f"s, verify {res['verify_s']:.3f} s, sha256 {got}, equal to the JAX "
+        f"digest: {got == digest['sha256']}")
+    require((res["trace"].n_rows, res["columns"]) ==
+            (digest["trace_rows"], digest["trace_columns"]),
+            "trace shape differs from the JAX fixture's")
+    require(hashlib.sha256(res["pub"].serialize()).hexdigest() ==
+            digest["public_inputs_sha256"],
+            "public inputs differ from the JAX fixture's")
+    require(got == digest["sha256"], "rc bench proof differs from the JAX digest")
+
+
+_TOY_SCRIPT = r"""
+import json, os, sys
+os.environ["LCP_FIELD"] = "f257"
+sys.path.insert(0, sys.argv[1])
+import torch
+from lambdaworks_cairo_prover_tpu_torch.air.examples.simple_fibonacci import (
+    FibonacciAIR, FibonacciPublicInputs, fibonacci_trace)
+from lambdaworks_cairo_prover_tpu_torch.field import cuda_field as cf
+from lambdaworks_cairo_prover_tpu_torch.field.params import P
+from lambdaworks_cairo_prover_tpu_torch.ntt import cuda_ntt as cn
+from lambdaworks_cairo_prover_tpu_torch.proof.options import ProofOptions
+from lambdaworks_cairo_prover_tpu_torch.proof.serde import serialize_proof
+from lambdaworks_cairo_prover_tpu_torch.prover.prove import prove
+from lambdaworks_cairo_prover_tpu_torch.verifier.verify import verify
+
+pub = FibonacciPublicInputs(a0=1, a1=1)
+options = ProofOptions.default_test_options()
+trace = fibonacci_trace([1, 1], int(sys.argv[2]), device="cuda")
+proof = prove(trace, pub, options, FibonacciAIR, device="cuda")
+print("TOY=" + json.dumps({
+    "p": P, "device": str(trace.data.device),
+    "proof_hex": serialize_proof(proof).hex(),
+    "verified": verify(proof, pub, options, FibonacciAIR),
+    "wrong_pub_verified": verify(proof, FibonacciPublicInputs(a0=2, a1=1),
+                                 options, FibonacciAIR),
+    "launches": {"mont_mul": cf.mont_mul.launches,
+                 "add_sub_mod": cf.add_sub_mod.launches,
+                 "ntt_dif_stages": cn.ntt_dif_stages.launches,
+                 "ntt_dif_local": cn.ntt_dif_local.launches}}))
+"""
+
+
+def phase_toy_field() -> None:
+    """simple_fibonacci over GF(257) on the card in a child process (the
+    field is fixed at import): the JAX package's proof bytes, verified, no
+    H1-H4 launch."""
+    env = dict(os.environ)
+    env["LCP_FIELD"] = "f257"
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", _TOY_SCRIPT, ROOT,
+                           str(TOY_ROWS)], cwd=ROOT, capture_output=True,
+                          text=True, timeout=300, env=env)
+    require(proc.returncode == 0, f"the GF(257) child failed: {proc.stdout}\n"
+            f"{proc.stderr}")
+    out = json.loads([ln for ln in proc.stdout.splitlines()
+                      if ln.startswith("TOY=")][-1][len("TOY="):])
+    with open(os.path.join(
+            FIXTURES, "simple_fibonacci_8_f257_test_options.proof"), "rb") as f:
+        ref = f.read()
+    data = bytes.fromhex(out["proof_hex"])
+    log(f"[toy-field] LCP_FIELD=f257 (p = {out['p']}) simple_fibonacci, "
+        f"{TOY_ROWS} rows on {out['device']}, test options: {len(data)} bytes, "
+        f"equal to the JAX GF(257) proof: {data == ref}; verified "
+        f"{out['verified']}, wrong public inputs verified "
+        f"{out['wrong_pub_verified']}; kernel launches {out['launches']} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    require(out["p"] == 257 and out["device"].startswith("cuda"),
+            "the child did not prove over GF(257) on the card")
+    require(data == ref, "the GF(257) proof differs from the JAX package's")
+    require(out["verified"] and not out["wrong_pub_verified"],
+            "the GF(257) proof did not verify, or wrong inputs did")
+    require(not any(out["launches"].values()),
+            "a Stark252 kernel was launched over GF(257)")
 
 
 def phase_cli(dev) -> None:
@@ -967,6 +1157,8 @@ def main() -> int:
         phase(phase_cairo_aux, torch, dev)
         launches_cairo_fib = phase(phase_cairo_full, torch, dev)
         launches = phase(phase_cairo_hints, torch, dev)
+        phase(phase_rc, dev)
+        phase(phase_toy_field)
         phase(phase_cli, dev)
         bad = sorted(m for m in sys.modules if m.split(".")[0] in
                      ("jax", "jaxlib", "lambdaworks_cairo_prover_tpu"))

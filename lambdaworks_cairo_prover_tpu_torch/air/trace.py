@@ -10,6 +10,7 @@ import torch
 
 from ..field import device as fd
 from ..field.params import N_LIMBS
+from ..ntt import core as nttc
 
 
 def _words_to_limbs(words: torch.Tensor, n_limbs: int) -> torch.Tensor:
@@ -72,6 +73,11 @@ class TraceTable:
                              dtype=torch.int64, device=device)
         return cls(fd.to_mont(raw.index_select(1, order)))
 
+    @classmethod
+    def from_columns(cls, cols: list[torch.Tensor]) -> "TraceTable":
+        """cols: list of (16, n_rows) Montgomery limb tensors."""
+        return cls(torch.stack(cols, dim=1))
+
     # -- accessors ----------------------------------------------------------
 
     @property
@@ -99,3 +105,9 @@ class TraceTable:
 
     def concatenate(self, other: "TraceTable") -> "TraceTable":
         return TraceTable(torch.cat([self.data, other.data], dim=1))
+
+    # -- polynomial ops -----------------------------------------------------
+
+    def compute_trace_polys(self) -> torch.Tensor:
+        """Per-column interpolation: (16, n_cols, n_rows) coefficients."""
+        return nttc.interpolate_fft(self.data)

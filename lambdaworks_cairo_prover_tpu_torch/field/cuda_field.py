@@ -9,12 +9,16 @@ canonical) that broadcast against each other on the batch axes.
 
 * :func:`mont_mul` / :func:`add_sub_mod` launch the kernels.  They take CUDA
   tensors only and raise on anything else before building or launching;
-  each adds one to its ``launches`` count per launch.  A broadcast operand
-  is read in place where its batch axes form one C-contiguous run (a
-  scalar, a row, a column); otherwise it is expanded to contiguous memory.
+  each adds one to its ``launches`` count per launch.  The kernels bake the
+  sparse Stark252 prime (csrc/field.cuh), so under another field
+  (``LCP_FIELD``, ``params.SPARSE_P`` false) they refuse to launch.  A
+  broadcast operand is read in place where its batch axes form one
+  C-contiguous run (a scalar, a row, a column); otherwise it is expanded to
+  contiguous memory.
 * :func:`mul_plain` / :func:`add_plain` / :func:`sub_plain` compute the same
   values with plain tensor ops on any device, in int64 with masks (CPU
-  torch has no uint32 arithmetic).  CPU tensors use them; the chip check
+  torch has no uint32 arithmetic), for any prime of ``params``.  CPU
+  tensors use them, as do all tensors of a toy field; the chip check
   compares the kernels against them on the card.
 """
 
@@ -25,12 +29,12 @@ import math
 import torch
 
 from .. import cuda_lib
-from .params import LIMB_MASK, N_LIMBS, P_LIMBS, SPARSE_P
-
-if not SPARSE_P:
-    raise ImportError("the PyTorch port supports only the Stark252 prime so far")
+from .params import LIMB_MASK, N_LIMBS, P_INV_NEG_LIMBS, P_LIMBS, SPARSE_P
 
 _I64 = torch.int64
+# the nonzero limbs of p: (0, 1), (12, 17), (15, 2048) for Stark252
+_P_TERMS = [(k, v) for k, v in enumerate(P_LIMBS) if v]
+_P_INV0 = P_INV_NEG_LIMBS[0]  # -p^-1 mod 2^16 (0xffff for Stark252)
 
 # ---------------------------------------------------------------------------
 # Plain versions (int64 limb arithmetic, any device)
@@ -68,9 +72,11 @@ def _cond_sub_p(limbs: torch.Tensor) -> torch.Tensor:
 
 
 def mul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """REDC(a*b): 16-bit-limb CIOS with lazy carries.  p = 1 (mod 2^16), so
-    each reduction factor is m = -t_i mod 2^16, and p has nonzero limbs only
-    at 0 (1), 12 (17) and 15 (2048)."""
+    """REDC(a*b): 16-bit-limb CIOS with lazy carries and the generic m*p
+    reduction (the JAX package's field/device.py:mul): each reduction factor
+    is m = t_i * (-p^-1) mod 2^16, and m*p is added over the nonzero limbs
+    of p only (for Stark252, p = 1 mod 2^16 makes m = -t_i mod 2^16, and p
+    has three nonzero limbs)."""
     shape = torch.broadcast_shapes(a.shape[1:], b.shape[1:])
     a = _lift(a, shape)
     b = _lift(b, shape)
@@ -78,10 +84,9 @@ def mul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                     device=a.device)
     for i in range(N_LIMBS):
         t[i:i + N_LIMBS] += a[i] * b
-        m = (-t[i]) & LIMB_MASK
-        t[i] += m
-        t[i + 12] += 17 * m
-        t[i + 15] += 2048 * m
+        m = ((t[i] & LIMB_MASK) * _P_INV0) & LIMB_MASK
+        for k, p_k in _P_TERMS:
+            t[i + k] += p_k * m
         t[i + 1] += t[i] >> 16  # t[i] is now 0 mod 2^16
     limbs = _normalize(t[N_LIMBS:], N_LIMBS)  # value < 2p < 2^253
     return _cond_sub_p(limbs).to(torch.int32)
@@ -118,6 +123,9 @@ def sub_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def _check_operands(what: str, *xs: torch.Tensor) -> None:
+    if not SPARSE_P:
+        raise ValueError(f"{what}: the CUDA kernel bakes the Stark252 prime; "
+                         "this field takes the plain version")
     dev = xs[0].device
     for x in xs:
         if not isinstance(x, torch.Tensor):

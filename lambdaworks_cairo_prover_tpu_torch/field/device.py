@@ -1,14 +1,19 @@
-"""Stark252 arithmetic over 16x16-bit limb tensors (PyTorch).
+"""Prime-field arithmetic over 16x16-bit limb tensors (PyTorch): Stark252,
+or the toy field that ``LCP_FIELD`` selects.
 
 Every function takes int32 tensors whose LEADING axis is the limb axis
 (shape ``(16, ...)``, little-endian 16-bit limbs, values < 2^16) — the JAX
 package's layout, so arrays pass between the two packages unchanged.
 Elements are in Montgomery form (R = 2^256) and canonical (< p) unless noted.
 
-Dispatch rule: a CUDA tensor goes to the hand-written kernels of
-``cuda_field`` (mul -> H1, add/sub/neg -> H2), whatever its size; a CPU
-tensor goes to their plain PyTorch versions.  There is no fallback from one
-to the other.  Functions that make a tensor from nothing take its device.
+Dispatch rule: under the Stark252 prime a CUDA tensor goes to the
+hand-written kernels of ``cuda_field`` (mul -> H1, add/sub/neg -> H2),
+whatever its size; a CPU tensor goes to their plain PyTorch versions.  The
+kernels bake the sparse Stark252 prime, so a toy field takes the plain
+versions on every device: the choice is fixed by ``params.SPARSE_P`` at
+import, as in the JAX package (field/device.py:mul).  There is no fallback
+from one to the other.  Functions that make a tensor from nothing take its
+device.
 """
 
 from __future__ import annotations
@@ -17,7 +22,7 @@ import numpy as np
 import torch
 
 from . import cuda_field as cf
-from .params import N_LIMBS, P, R, R2
+from .params import LIMB_MASK, N_LIMBS, P, R, R2, SPARSE_P
 
 _I32 = torch.int32
 
@@ -63,6 +68,18 @@ def zeros(shape=(), *, device) -> torch.Tensor:
     return torch.zeros((N_LIMBS,) + tuple(shape), dtype=_I32, device=device)
 
 
+_const_cache: dict = {}  # (value, mont, device) -> (16, 1) limbs
+
+
+def constant(value: int, mont: bool = True, *, device) -> torch.Tensor:
+    """:func:`from_int`, cached per device: a constant that the device's
+    queue reads again and again is copied to the device once."""
+    key = (value % P, mont, torch.device(device))
+    if key not in _const_cache:
+        _const_cache[key] = from_int(value, mont=mont, device=device)
+    return _const_cache[key]
+
+
 def ones(shape=(), *, device) -> torch.Tensor:
     """Montgomery-form one (= R mod p) broadcast to the batch shape."""
     one = from_int(1, device=device).reshape((N_LIMBS,) + (1,) * len(tuple(shape)))
@@ -70,22 +87,42 @@ def ones(shape=(), *, device) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Packed layout: two 16-bit limbs a 32-bit word (the JAX package's at-rest
+# layout, field/device.py:pack); int64 words here, as torch has no uint32
+# arithmetic on the CPU
+# ---------------------------------------------------------------------------
+
+
+def pack(a: torch.Tensor) -> torch.Tensor:
+    """(16, ...) 16-bit limbs -> (8, ...) int64 words, limb 2k | limb 2k+1 << 16."""
+    a = a.to(torch.int64)
+    return a[0::2] | (a[1::2] << 16)
+
+
+def unpack(p: torch.Tensor) -> torch.Tensor:
+    """(8, ...) packed words -> (16, ...) int32 16-bit limbs."""
+    p = p.to(torch.int64)
+    limbs = torch.stack([p & LIMB_MASK, (p >> 16) & LIMB_MASK], dim=1)
+    return limbs.reshape((N_LIMBS,) + tuple(p.shape[1:])).to(_I32)
+
+
+# ---------------------------------------------------------------------------
 # Elementwise arithmetic (kernel on CUDA, plain version on CPU)
 # ---------------------------------------------------------------------------
 
 
-def _on_cpu(a: torch.Tensor, b: torch.Tensor) -> bool:
-    return a.device.type == "cpu" and b.device.type == "cpu"
+def _plain(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return not SPARSE_P or (a.device.type == "cpu" and b.device.type == "cpu")
 
 
 def add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Modular addition of canonical limb tensors."""
-    return cf.add_plain(a, b) if _on_cpu(a, b) else cf.add_sub_mod(a, b, "add")
+    return cf.add_plain(a, b) if _plain(a, b) else cf.add_sub_mod(a, b, "add")
 
 
 def sub(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Modular subtraction a - b."""
-    return cf.sub_plain(a, b) if _on_cpu(a, b) else cf.add_sub_mod(a, b, "sub")
+    return cf.sub_plain(a, b) if _plain(a, b) else cf.add_sub_mod(a, b, "sub")
 
 
 def neg(a: torch.Tensor) -> torch.Tensor:
@@ -94,18 +131,22 @@ def neg(a: torch.Tensor) -> torch.Tensor:
 
 def mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Montgomery product REDC(a*b); canonical output."""
-    return cf.mul_plain(a, b) if _on_cpu(a, b) else cf.mont_mul(a, b)
+    return cf.mul_plain(a, b) if _plain(a, b) else cf.mont_mul(a, b)
+
+
+def square(a: torch.Tensor) -> torch.Tensor:
+    return mul(a, a)
 
 
 def from_mont(a: torch.Tensor) -> torch.Tensor:
     """Montgomery form -> canonical residue limbs (REDC with 1)."""
-    one = from_int(1, mont=False, device=a.device)
+    one = constant(1, mont=False, device=a.device)
     return mul(a, one.reshape((N_LIMBS,) + (1,) * (a.dim() - 1)))
 
 
 def to_mont(a: torch.Tensor) -> torch.Tensor:
     """Canonical residue limbs -> Montgomery form (multiply by R^2)."""
-    r2 = from_int(R2, mont=False, device=a.device)
+    r2 = constant(R2, mont=False, device=a.device)
     return mul(a, r2.reshape((N_LIMBS,) + (1,) * (a.dim() - 1)))
 
 

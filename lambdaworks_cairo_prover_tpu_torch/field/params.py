@@ -12,9 +12,9 @@ import time (the limb tables and twiddle caches are process-wide):
 
   * ``stark252`` (default) — the Cairo prime
   * ``f257``     — GF(257): q - 1 = 2^8, so every NTT up to 256 points
-    works and every intermediate value is hand-checkable.  The PyTorch
-    port's device arithmetic supports only the sparse Stark252 prime so
-    far and refuses other fields.
+    works and every intermediate value is hand-checkable.  The CUDA
+    kernels bake the sparse Stark252 prime, so this field takes the plain
+    PyTorch field ops and NTT (generic m*p reduction) on every device.
 
 Device representation: 16 little-endian limbs of 16 bits each, held in
 int32 tensor lanes (values < 2^16), in Montgomery form with R = 2^256.  The Stark252 prime is

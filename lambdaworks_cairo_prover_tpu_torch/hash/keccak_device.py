@@ -61,12 +61,22 @@ def _shr(x: torch.Tensor, k) -> torch.Tensor:
     return ((x >> 1) & _MAX_POS) >> (k - 1)
 
 
+_perm_cache: dict = {}  # device -> (rho, 64 - rho, pi source rows)
+
+
+def perm_tables(dev: torch.device) -> tuple:
+    """The rho amounts and pi rows on ``dev``, copied there once (a copy
+    in every call would wait for the device each time)."""
+    if dev not in _perm_cache:
+        rho = torch.tensor(_RHO, dtype=torch.int64, device=dev)[:, None]
+        _perm_cache[dev] = (rho, 64 - rho, torch.tensor(
+            _PI_SRC, dtype=torch.int64, device=dev))
+    return _perm_cache[dev]
+
+
 def _keccak_f(state: torch.Tensor) -> torch.Tensor:
     """keccak-f[1600] on a (25, n) int64 state."""
-    dev = state.device
-    rho = torch.tensor(_RHO, dtype=torch.int64, device=dev)[:, None]
-    rho_r = 64 - rho
-    pi_src = torch.tensor(_PI_SRC, dtype=torch.int64, device=dev)
+    rho, rho_r, pi_src = perm_tables(state.device)
     a = state
     for rc in _RC_I64:
         a5 = a.reshape(5, 5, -1)  # [y][x]
@@ -147,7 +157,9 @@ def hash_digest_pairs(digests: torch.Tensor) -> torch.Tensor:
 def digest_words_to_masked_limbs(digest: torch.Tensor) -> torch.Tensor:
     """(4,) int64 digest lanes -> (16, 1) RAW (non-Montgomery) limbs of the
     251-bit-masked big-endian integer: the tensor twin of
-    transcript_to_field (field/host.py::randomness_to_field)."""
+    transcript_to_field (field/host.py::randomness_to_field) for the
+    252-bit Stark252 field only (the FRI chain's gate checks the field).
+    Bytes are widened from uint8, so no arithmetic shift is involved."""
     be = digest.contiguous().view(torch.uint8).to(torch.int64)  # 32 bytes
     le = be.flip(0)
     limbs = le[0::2] | (le[1::2] << 8)

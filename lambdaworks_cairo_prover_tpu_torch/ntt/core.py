@@ -6,8 +6,11 @@ order N and evaluations in natural order.  Transforms run along the last
 axis; axes between the limb axis and the last are batch.
 
 A CUDA tensor is transformed by the H3 + H4 kernels (``cuda_ntt.ntt_cuda``),
-a CPU tensor by the plain radix-2 NTT (``cuda_ntt.ntt_plain``).  Tables are
-built on the input's device and cached in plain dicts.
+a CPU tensor by the plain radix-2 NTT (``cuda_ntt.ntt_plain``).  The kernels
+bake the Stark252 prime, so a toy field (``LCP_FIELD``; its largest NTT is
+2^TWO_ADICITY points) takes the plain NTT on every device, as it takes the
+plain field ops.  Tables are built on the input's device from ``params``
+and cached in plain dicts.
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ from __future__ import annotations
 import torch
 
 from ..field import device as fd
-from ..field.params import N_LIMBS, P
+from ..field.params import N_LIMBS, P, SPARSE_P
 from . import cuda_ntt
 
 _powers_cache: dict = {}  # (offset, n, device) -> (16, n) powers
@@ -30,7 +33,7 @@ def offset_powers(offset: int, n: int, device) -> torch.Tensor:
 
 
 def _transform(x: torch.Tensor, inverse: bool) -> torch.Tensor:
-    if x.device.type == "cpu":
+    if x.device.type == "cpu" or not SPARSE_P:
         return cuda_ntt.ntt_plain(x, inverse)
     return cuda_ntt.ntt_cuda(x, inverse)
 

@@ -31,7 +31,7 @@ import torch
 from .. import cuda_lib
 from ..field import cuda_field as cf
 from ..field import device as fd
-from ..field.params import N_LIMBS, P, get_primitive_root_of_unity
+from ..field.params import N_LIMBS, P, SPARSE_P, get_primitive_root_of_unity
 
 LOCAL_LOG = 10  # largest chunk of H4, as LOCAL_LOG in csrc/ntt.cu
 TILE_LOG = 11   # points a block keeps in shared memory, as TILE_LOG there
@@ -225,6 +225,9 @@ def ntt_plain(x: torch.Tensor, inverse: bool) -> torch.Tensor:
 
 
 def _check(what: str, src: torch.Tensor, dst: torch.Tensor, twp: torch.Tensor) -> tuple:
+    if not SPARSE_P:
+        raise ValueError(f"{what}: the CUDA kernel bakes the Stark252 prime; "
+                         "this field takes the plain NTT")
     for name, t in (("src", src), ("dst", dst), ("tw", twp)):
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{what}: {name} must be a tensor")

@@ -1,11 +1,15 @@
 """Evaluation domains (reference src/starks/domain.rs).
 
-Host-side scalars (roots, orders); the prover builds its domain tensors in
-prover/kernels.py."""
+Host-side scalars (roots, orders) plus lazily built tensors of the LDE
+coset values and their powers, cached per device."""
 
 from __future__ import annotations
 
+import torch
+
+from ..field import device as fd
 from ..field.params import P, get_primitive_root_of_unity
+from ..ntt import core as nttc
 
 
 class Domain:
@@ -21,6 +25,30 @@ class Domain:
         self.lde_root_order = (n * self.blowup_factor).bit_length() - 1
         self.lde_size = n * self.blowup_factor
         self.lde_primitive_root = get_primitive_root_of_unity(self.lde_root_order)
+        self._cache: dict = {}
+
+    # -- device tensors -----------------------------------------------------
+
+    def lde_values(self, *, device) -> torch.Tensor:
+        """(16, N) Montgomery limbs of h * w^i over the LDE coset."""
+        key = ("lde_values", torch.device(device))
+        if key not in self._cache:
+            pw = nttc.offset_powers(self.lde_primitive_root, self.lde_size,
+                                    device)
+            self._cache[key] = fd.mul(pw, fd.from_int(self.coset_offset,
+                                                      device=device))
+        return self._cache[key]
+
+    def lde_pow(self, exponent: int, *, device) -> torch.Tensor:
+        """(16, N) limbs of d_i^exponent for d_i in the LDE coset:
+        h^e * (w^e)^i, one powers table and a scalar scale."""
+        key = ("lde_pow", exponent, torch.device(device))
+        if key not in self._cache:
+            pw = fd.powers(pow(self.lde_primitive_root, exponent, P),
+                           self.lde_size, device=device)
+            self._cache[key] = fd.mul(pw, fd.from_int(
+                pow(self.coset_offset, exponent, P), device=device))
+        return self._cache[key]
 
     # -- host scalars -------------------------------------------------------
 

@@ -17,10 +17,11 @@ import torch
 
 from ..air.frame import DeviceFrame
 from ..field import device as fd
-from ..field.params import N_LIMBS, P
+from ..field.params import N_LIMBS, P, R2
 from ..hash import keccak_device as kd
 from ..hash.merkle import tree_levels
 from ..ntt import core as nttc
+from ..ntt import cuda_ntt as cn
 
 
 _COL_CHUNK = 8  # columns (or constraints) stacked into one temporary
@@ -29,9 +30,8 @@ _COL_CHUNK = 8  # columns (or constraints) stacked into one temporary
 class ProverKernels:
     """Domain tables and round computations for one (air, domain, device)."""
 
-    # the JAX package's single-program FRI commit chain is not ported yet;
-    # prove() takes the per-layer path, which gives the same bytes
-    supports_fri_chain = False
+    # fri_commit_chain: prove() may derive the FRI zetas on the device
+    supports_fri_chain = True
 
     def __init__(self, air, domain, device):
         self.air = air
@@ -52,14 +52,12 @@ class ProverKernels:
         # ---- domain tables ----
         h = domain.coset_offset
         w = domain.lde_primitive_root
-        t = {"lde_values": fd.mul(nttc.offset_powers(w, N, dev),
-                                  fd.from_int(h, device=dev))}
+        t = {"lde_values": domain.lde_values(device=dev)}
         for name, e in [("d_adj_boundary", bound - n)] + [
             (f"d_adj_{d}", bound - n * (d - 1))
             for d in sorted(set(ctxc.transition_degrees))
         ]:
-            t[name] = fd.mul(fd.powers(pow(w, e, P), N, device=dev),
-                             fd.from_int(pow(h, e, P), device=dev))
+            t[name] = domain.lde_pow(e, device=dev)
         blowup = domain.blowup_factor
         hn = pow(h, n, P)
         wb = pow(w, n, P)
@@ -245,6 +243,63 @@ class ProverKernels:
         evals = nttc.evaluate_offset_fft(folded, 1, domain_size, offset_int)
         leaves = kd.hash_felt_leaves(fd.from_mont(evals))
         return folded, evals, tree_levels(leaves)
+
+    def _chain_tables(self, coeffs: torch.Tensor, plan) -> None:
+        """Build every table the chain reads (offset powers, twiddles, field
+        constants, Keccak's permutation) on the device of ``coeffs``, so
+        that queueing the chain copies nothing from the host and so never
+        waits for the device."""
+        dev, domain, n_coeffs = coeffs.device, self.domain, coeffs.shape[-1]
+        nttc.offset_powers(domain.coset_offset, n_coeffs, dev)
+        for k, (off, _) in enumerate(plan, start=1):
+            nttc.offset_powers(off, n_coeffs >> k, dev)
+        if dev.type == "cuda":
+            cn.packed_twiddle_table(domain.lde_size.bit_length() - 1, False,
+                                    dev)
+        fd.constant(1, mont=False, device=dev)
+        fd.constant(R2, mont=False, device=dev)
+        kd.perm_tables(dev)
+
+    def fri_commit_chain(self, coeffs, state, plan, final_fold=False):
+        """The device part of the FRI commit phase, queued without a host
+        round trip (the JAX package's ``fri_commit_chain``): the first
+        layer's LDE and commit, then for each (offset, domain size) of
+        ``plan`` the Fiat-Shamir draw on the device (state' =
+        keccak256(state || root), zeta = the 251-bit-masked state, as
+        transcript/fiat_shamir.py draws it), the fold, its LDE and commit.
+        With ``final_fold`` one more draw and the protocol's last fold.
+
+        coeffs: (16, n) DEEP coefficients; state: (1, 4) int64 lanes of the
+        transcript's 32-byte state.  Returns (rows, evals, levels, coeffs):
+        rows is one (L + 1, 4) int64 tensor of the layer roots, plus, with
+        ``final_fold``, a last row holding the 32-byte little-endian
+        encoding of the folded constant (canonical, not Montgomery); the
+        caller reads it back once.  Stark252 only."""
+        self._chain_tables(coeffs, plan)
+        evals, levels = self.fri_first_layer(coeffs)
+        rows = [levels[-1]]
+        evals_out, levels_out = [evals], [levels]
+
+        def draw(state):
+            state = kd.hash_digest_pairs(torch.cat([state, rows[-1]]))
+            return state, fd.to_mont(kd.digest_words_to_masked_limbs(state[0]))
+
+        for off, ds in plan:
+            state, zeta = draw(state)
+            coeffs, evals, levels = self.fri_fold_layer(coeffs, zeta, off, ds)
+            rows.append(levels[-1])
+            evals_out.append(evals)
+            levels_out.append(levels)
+        if final_fold:
+            _, zeta = draw(state)
+            last = fd.from_mont(fd.add(coeffs[:, 0:1],
+                                       fd.mul(coeffs[:, 1:2], zeta)))
+            # 16 limbs of 16 bits -> 4 lanes of 64 (p < 2^252: no sign bit)
+            shifts = torch.arange(0, 64, 16, dtype=torch.int64,
+                                  device=coeffs.device)
+            lanes = (last.to(torch.int64).reshape(4, 4) << shifts).sum(1)
+            rows.append(lanes[None])
+        return torch.cat(rows), evals_out, levels_out, coeffs
 
 
 class _ProbeTranscript:

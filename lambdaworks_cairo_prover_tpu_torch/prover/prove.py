@@ -11,12 +11,14 @@ from __future__ import annotations
 import os
 import time
 
+import numpy as np
 import torch
 
 from ..air.trace import TraceTable
 from ..field import device as fd
 from ..field import host as fh
-from ..field.params import N_LIMBS, P, get_primitive_root_of_unity
+from ..field.params import (FIELD_BIT_SIZE, N_LIMBS, P,
+                            get_primitive_root_of_unity)
 from ..hash.keccak_host import keccak256_batch
 from ..hash.merkle import MerkleTree, fetch_tree
 from ..hash import keccak_device as kd
@@ -38,6 +40,10 @@ class ProvingError(Exception):
 
 
 _HOST_FRI_THRESHOLD = 4096  # fold FRI layers of this size or less on host
+# LDE domains up to 2^this run every FRI layer and the final fold in the
+# device chain (fri_last_value rides the roots readback, no host tail); the
+# JAX package's variable and default, so that both take the same route
+_FULL_CHAIN_MAX_LOG = int(os.environ.get("LCP_FULL_FRI_CHAIN_MAX_LOG", "16"))
 
 
 def _host_fold(coeffs: list[int], zeta: int) -> list[int]:
@@ -106,6 +112,99 @@ class _HostMerkle:
         return paths
 
 
+def _fri_commit(kern, domain: Domain, deep_coeffs: torch.Tensor, transcript,
+                device) -> tuple:
+    """The FRI layers [(evaluations, tree, domain size)] and the last value.
+
+    The layers whose halved domain stays above _HOST_FRI_THRESHOLD (all of
+    them, and the final fold, when the LDE domain is at most
+    2^_FULL_CHAIN_MAX_LOG points) go through ``kern.fri_commit_chain``,
+    which derives their zetas on the device, and their roots come back in
+    one copy; the host transcript replays each draw.  The rest fold layer
+    by layer, with the zeta drawn on the host after each root: all layers
+    where the chain's rule may not hold (a transcript of another type, a
+    field other than the 252-bit one) and the tail below the threshold,
+    which folds on the host.  The JAX package takes the same routes
+    (prover/prove.py), and either gives the same bytes."""
+    N = domain.lde_size
+    number_layers = domain.root_order
+    full_chain = N <= 1 << _FULL_CHAIN_MAX_LOG
+    plan = []
+    off_p, ds_p = domain.coset_offset, N
+    for _ in range(1, number_layers):
+        off_p = off_p * off_p % P
+        ds_p //= 2
+        if not full_chain and ds_p <= _HOST_FRI_THRESHOLD:
+            break
+        plan.append((off_p, ds_p))
+    buf = getattr(transcript, "_buf", None)
+    # exact type: a DefaultTranscript subclass may change the append and
+    # challenge rule that the chain hard-codes; the chain's draw masks to the
+    # 252-bit field's 251 bits
+    use_chain = (type(transcript) is DefaultTranscript and plan
+                 and buf is not None and len(buf) == 32
+                 and FIELD_BIT_SIZE == 252 and kern.supports_fri_chain)
+    full_chain = full_chain and use_chain and len(plan) == number_layers - 1
+
+    fri_layers = []
+    coeffs = deep_coeffs
+    offset_int, domain_size = domain.coset_offset, N
+    if use_chain:
+        state = torch.from_numpy(
+            np.frombuffer(bytes(buf), dtype="<i8").copy()).to(device)[None]
+        rows_dev, evals_l, levels_l, coeffs = kern.fri_commit_chain(
+            deep_coeffs, state, plan, final_fold=full_chain)
+        rows = rows_dev.cpu().numpy()  # the one readback of the chain
+        for i, (evals, levels) in enumerate(zip(evals_l, levels_l)):
+            if i > 0:
+                transcript_to_field(transcript)  # the device drew this zeta
+                domain_size //= 2
+            tree = fetch_tree(levels)
+            tree._root_bytes = kd.digest_to_bytes(rows[i])
+            fri_layers.append((evals, tree, domain_size))
+            transcript.append(tree.root)
+        offset_int, domain_size = plan[-1]
+        if full_chain:
+            transcript_to_field(transcript)  # the final fold's zeta
+            fri_last_value = int.from_bytes(rows[-1].tobytes(), "little")
+            transcript.append(fh.to_bytes_be(fri_last_value))
+            return fri_layers, fri_last_value
+    else:
+        evals0, levels0 = kern.fri_first_layer(deep_coeffs)
+        tree0 = fetch_tree(levels0)
+        fri_layers.append((evals0, tree0, N))
+        transcript.append(tree0.root)
+
+    host_coeffs = None  # once small enough, fold/hash layers on host
+    for _ in range(len(fri_layers), number_layers):
+        zeta = transcript_to_field(transcript)
+        offset_int = offset_int * offset_int % P
+        domain_size //= 2
+        if host_coeffs is None and domain_size <= _HOST_FRI_THRESHOLD:
+            host_coeffs = fd.to_ints(coeffs)
+        if host_coeffs is not None:
+            host_coeffs = _host_fold(host_coeffs, zeta)
+            evals = _host_evaluate_offset_fft(host_coeffs, domain_size,
+                                              offset_int)
+            tree = _HostMerkle(keccak256_batch(
+                [fh.to_bytes_be(v) for v in evals]))
+        else:
+            coeffs, evals, levels = kern.fri_fold_layer(
+                coeffs, fd.from_int(zeta, device=device), offset_int,
+                domain_size)
+            tree = fetch_tree(levels)
+        fri_layers.append((evals, tree, domain_size))
+        transcript.append(tree.root)
+
+    zeta = transcript_to_field(transcript)
+    # final fold on host: the remaining polynomial is tiny
+    last_coeffs = host_coeffs if host_coeffs is not None else fd.to_ints(coeffs)
+    folded_host = _host_fold(last_coeffs, zeta)
+    fri_last_value = folded_host[0] if folded_host else 0
+    transcript.append(fh.to_bytes_be(fri_last_value))
+    return fri_layers, fri_last_value
+
+
 def _sample_z_ood(domain: Domain, transcript) -> int:
     while True:
         z = transcript_to_field(transcript)
@@ -171,7 +270,6 @@ def prove(
     transcript = transcript_factory()
     n = air.trace_length()
     N = domain.lde_size
-    h = domain.coset_offset
     g = domain.trace_primitive_root
     offsets = air.context.transition_offsets
     _sync(device)
@@ -287,44 +385,11 @@ def prove(
     _sync(device)
     timings["round4_deep"] = time.perf_counter() - t4
 
-    # FRI commit phase (reference fri/mod.rs:20-72), one layer at a time
+    # FRI commit phase (reference fri/mod.rs:20-72)
     t4b = time.perf_counter()
-    number_layers = domain.root_order
-    evals0, levels0 = kern.fri_first_layer(deep_coeffs)
-    tree0 = fetch_tree(levels0)
-    fri_layers = [(evals0, tree0, N)]  # (evaluations, tree, domain_size)
-    transcript.append(tree0.root)
-
-    coeffs = deep_coeffs
-    offset_int = h
-    domain_size = N
-    host_coeffs = None  # once small enough, fold/hash layers on host
-    for _ in range(1, number_layers):
-        zeta = transcript_to_field(transcript)
-        offset_int = offset_int * offset_int % P
-        domain_size //= 2
-        if host_coeffs is None and domain_size <= _HOST_FRI_THRESHOLD:
-            host_coeffs = fd.to_ints(coeffs)
-        if host_coeffs is not None:
-            host_coeffs = _host_fold(host_coeffs, zeta)
-            evals = _host_evaluate_offset_fft(host_coeffs, domain_size,
-                                              offset_int)
-            tree = _HostMerkle(keccak256_batch(
-                [fh.to_bytes_be(v) for v in evals]))
-        else:
-            coeffs, evals, levels = kern.fri_fold_layer(
-                coeffs, fd.from_int(zeta, device=device), offset_int,
-                domain_size)
-            tree = fetch_tree(levels)
-        fri_layers.append((evals, tree, domain_size))
-        transcript.append(tree.root)
-
-    zeta = transcript_to_field(transcript)
-    # final fold on host: the remaining polynomial is tiny
-    last_coeffs = host_coeffs if host_coeffs is not None else fd.to_ints(coeffs)
-    folded_host = _host_fold(last_coeffs, zeta)
-    fri_last_value = folded_host[0] if folded_host else 0
-    transcript.append(fh.to_bytes_be(fri_last_value))
+    fri_layers, fri_last_value = _fri_commit(kern, domain, deep_coeffs,
+                                             transcript, device)
+    _sync(device)
     timings["round4_fri_commit"] = time.perf_counter() - t4b
 
     # grinding (reference prover.rs:380-385)

@@ -100,3 +100,20 @@ def test_int_conversions_match_jax():
         assert np.array_equal(got, jfd.from_ints(vals, mont=mont))
         assert tfd.to_ints(limbs_from_numpy(got, "cpu"), mont=mont) == [
             v % P for v in vals]
+
+
+def test_square_matches_jax():
+    a = rand_limbs(7, (3, 101))
+    assert np.array_equal(port(tfd.square, a), jax_np(jfd.square, a))
+
+
+def test_pack_unpack_match_jax():
+    a = rand_limbs(8, (5, 77))
+    packed = tfd.pack(limbs_from_numpy(a, "cpu"))
+    assert packed.shape == (N_LIMBS // 2, 5, 77)
+    want = jax_np(jfd.pack, a)
+    assert np.array_equal(packed.numpy().astype(np.uint32), want)
+    unpacked = limbs_to_numpy(tfd.unpack(torch.from_numpy(want.astype(np.int64))))
+    assert np.array_equal(unpacked, jax_np(jfd.unpack, want))
+    assert np.array_equal(unpacked, a)
+

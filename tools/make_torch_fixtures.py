@@ -8,7 +8,7 @@ Run once on a CPU host with JAX installed:
 
 ``--only`` names the parts to write (all by default): ``small``, ``bench``,
 ``fused``, ``butterfly2``, ``cairo``, ``examples``, ``programs``, ``casm``,
-``rc``, in the order of the list below.
+``hinted``, ``rc``, ``toy``, ``fri_chain``, in the order of the list below.
 
 Writes into tests/fixtures/torch_port/:
 
@@ -46,10 +46,23 @@ Writes into tests/fixtures/torch_port/:
   ``cairo_programs.json``: for each file the generator, its arguments (the
   ecdsa signature made by the JAX package's ``ecdsa_sign``), the layout,
   the trace's rows and columns.
-* ``cairo_compare_lesser_array_bench_digest.json`` — the sha256 and size of
-  the JAX proof of ``compare_lesser_array_program(RC_LENGTH)`` (2^16 rows x
-  61 columns: the range-check builtin) with the bench options, and its
-  serialized public inputs in hex.
+* ``cairo_compare_lesser_array_bench_digest.json`` (``hinted``) — the sha256
+  and size of the JAX proof of ``compare_lesser_array_program(HINTED_LENGTH)``
+  (a hinted stdlib program: 2^16 rows x 61 columns, the range-check builtin)
+  with the bench options, and its serialized public inputs in hex.
+* ``cairo_rc_bench_digest.json`` (``rc``) — the sha256 and size of the JAX
+  proof of ``bench.py``'s rc workload at 2^16 rows: ``rc_program`` of the
+  value count that :func:`rc_value_count` calibrates (the loop of
+  ``bench.py:_rc_workload``, copied here), with the bench options.
+* ``simple_fibonacci_8_f257_test_options.proof`` (``toy``) — the JAX proof
+  (``serialize_proof``) of ``simple_fibonacci`` at 8 rows over GF(257)
+  (``LCP_FIELD=f257``), ``default_test_options()``, as
+  ``tests/test_toy_field.py`` makes it.
+* ``fri_chain.json`` (``fri_chain``) — the JAX package's
+  ``ProverKernels.fri_commit_chain`` on the coefficients and transcript
+  state of :func:`fri_chain_input`, for a partial plan and for the full
+  chain: the sha256 of the stacked roots (u32 words), of each layer's
+  evaluations and of the last coefficients (uint32 limbs).
 * ``synthetic_contract.casm`` and ``cairo1_synthetic_test_options.proof`` —
   a small CASM contract class (:func:`synthetic_casm`: Cairo1 core hints
   ``TestLessThan``, ``AllocSegment`` and ``DivMod``, a range-check cell),
@@ -116,8 +129,14 @@ CAIRO_PROGRAMS = {
     "compare_lesser_array_10": ("stdlib", "compare_lesser_array_program",
                                 (10,), "Small"),
 }
-RC_DIGEST_NAME = "cairo_compare_lesser_array_bench_digest.json"
-RC_LENGTH = 1200  # 64,843 steps: 2^16 rows
+HINTED_DIGEST_NAME = "cairo_compare_lesser_array_bench_digest.json"
+HINTED_LENGTH = 1200  # 64,843 steps: 2^16 rows
+RC_DIGEST_NAME = "cairo_rc_bench_digest.json"
+RC_LOG_ROWS = 16
+TOY_NAME = "simple_fibonacci_8_f257_test_options.proof"
+TOY_ROWS = 8
+FRI_CHAIN_NAME = "fri_chain.json"
+FRI_CHAIN_LOG, FRI_CHAIN_SEED = 8, 60  # 2^8 rows: an LDE of 2^10 points
 CASM_NAME = "synthetic_contract.casm"
 CASM_PROOF_NAME = "cairo1_synthetic_test_options.proof"
 EXAMPLES = ("fibonacci_2_columns", "quadratic_air", "fibonacci_rap",
@@ -193,6 +212,87 @@ def _butterfly2_worker(queue) -> None:
                "butterfly2(interpret=True) on CPU",
                "input_sha256": hashlib.sha256(x.tobytes()).hexdigest(),
                "output_sha256": hashlib.sha256(out.tobytes()).hexdigest()})
+
+
+def _toy_worker(queue) -> None:
+    """simple_fibonacci over GF(257) with the JAX package, as
+    tests/test_toy_field.py proves it; queues the proof bytes."""
+    os.environ["LCP_FIELD"] = "f257"
+    sys.path.insert(0, ROOT)
+    from lambdaworks_cairo_prover_tpu.air.examples.simple_fibonacci import (
+        FibonacciAIR, FibonacciPublicInputs, fibonacci_trace)
+    from lambdaworks_cairo_prover_tpu.proof.options import ProofOptions
+    from lambdaworks_cairo_prover_tpu.proof.serde import serialize_proof
+    from lambdaworks_cairo_prover_tpu.prover.prove import prove
+
+    proof = prove(fibonacci_trace([1, 1], TOY_ROWS),
+                  FibonacciPublicInputs(a0=1, a1=1),
+                  ProofOptions.default_test_options(), FibonacciAIR)
+    queue.put(serialize_proof(proof))
+
+
+def fri_chain_input(seed: int = FRI_CHAIN_SEED, log_rows: int = FRI_CHAIN_LOG):
+    """(coefficients (16, 2^log_rows) uint32 canonical limbs, 32-byte
+    transcript state) from ``np.random.default_rng(seed)``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    limbs = rng.integers(0, 1 << 16, size=(16, 1 << log_rows), dtype=np.uint32)
+    limbs[15] &= 0x7FF
+    return limbs, rng.bytes(32)
+
+
+def fri_chain_plans(log_rows: int = FRI_CHAIN_LOG, blowup: int = 4,
+                    offset: int = 3, partial: int = 3) -> dict:
+    """The plans of a 2^log_rows-row trace's FRI commit: ``partial`` folds,
+    and every fold (``root_order - 1`` of them, the full chain); each a
+    tuple of (offset, domain size) as prover/prove.py builds it."""
+    p = (1 << 251) + 17 * (1 << 192) + 1  # Stark252
+    plan, off, ds = [], offset, (1 << log_rows) * blowup
+    for _ in range(1, log_rows):
+        off, ds = off * off % p, ds // 2
+        plan.append((off, ds))
+    return {"partial": tuple(plan[:partial]), "full": tuple(plan)}
+
+
+def _fri_chain_worker(queue) -> None:
+    """The JAX package's fri_commit_chain on fri_chain_input, for both
+    plans of fri_chain_plans, on the kernels of simple_fibonacci at
+    2^FRI_CHAIN_LOG rows with the test options."""
+    import jax.numpy as jnp
+    import numpy as np
+
+    sys.path.insert(0, ROOT)
+    from lambdaworks_cairo_prover_tpu.air.examples.simple_fibonacci import (
+        FibonacciAIR, FibonacciPublicInputs)
+    from lambdaworks_cairo_prover_tpu.proof.options import ProofOptions
+    from lambdaworks_cairo_prover_tpu.prover.domain import Domain
+    from lambdaworks_cairo_prover_tpu.prover.kernels import get_kernels
+
+    def sha(x):
+        return hashlib.sha256(np.asarray(x, dtype=np.uint32).tobytes()
+                              ).hexdigest()
+
+    air = FibonacciAIR(1 << FRI_CHAIN_LOG, FibonacciPublicInputs(a0=1, a1=1),
+                       ProofOptions.default_test_options())
+    kern = get_kernels(air, Domain(air))
+    coeffs, state = fri_chain_input()
+    state_words = jnp.asarray(np.frombuffer(state, dtype="<u4"))
+    record = {"log_rows": FRI_CHAIN_LOG, "seed": FRI_CHAIN_SEED,
+              "input": "tools/make_torch_fixtures.py:fri_chain_input()",
+              "kernels": "simple_fibonacci, default_test_options()",
+              "made_by": "lambdaworks_cairo_prover_tpu prover/kernels.py:"
+              "fri_commit_chain on CPU"}
+    for name, plan in fri_chain_plans().items():
+        final = name == "full"
+        roots, evals, _, last = kern.fri_commit_chain(
+            jnp.asarray(coeffs), state_words, plan, final_fold=final)
+        record[name] = {
+            "plan": [[o, d] for o, d in plan], "final_fold": final,
+            "roots_hex": np.asarray(roots, dtype=np.uint32).tobytes().hex(),
+            "evals_sha256": [sha(e) for e in evals],
+            "last_coeffs_sha256": sha(last)}
+    queue.put(record)
 
 
 def _write_json(name: str, record) -> None:
@@ -432,20 +532,20 @@ def _write_program_fixtures(budget: float, n_jobs: int) -> None:
         "proof_files": manifest})
 
 
-def _write_rc_digest(budget: float) -> None:
-    print(f"bench-options compare_lesser_array_program({RC_LENGTH}) "
+def _write_hinted_digest(budget: float) -> None:
+    print(f"bench-options compare_lesser_array_program({HINTED_LENGTH}) "
           f"(budget {budget:.0f} s)...", flush=True)
     result = _in_child(_program_worker, (
-        "stdlib", "compare_lesser_array_program", (RC_LENGTH,), "Small", True),
-        budget)
+        "stdlib", "compare_lesser_array_program", (HINTED_LENGTH,), "Small",
+        True), budget)
     if result is None:
-        print(f"{RC_DIGEST_NAME}: failed or over the budget", flush=True)
+        print(f"{HINTED_DIGEST_NAME}: failed or over the budget", flush=True)
         return
     proof_bytes, pub_bytes, rows, cols, seconds, _ = result
-    _write_json(RC_DIGEST_NAME, {
+    _write_json(HINTED_DIGEST_NAME, {
         "program": "cairo/stdlib.py:compare_lesser_array_program"
-                   f"({RC_LENGTH})",
-        "length": RC_LENGTH,
+                   f"({HINTED_LENGTH})",
+        "length": HINTED_LENGTH,
         "layout": "Small",
         "trace_rows": rows,
         "trace_columns": cols,
@@ -455,6 +555,84 @@ def _write_rc_digest(budget: float) -> None:
         "public_inputs_sha256": hashlib.sha256(pub_bytes).hexdigest(),
         "public_inputs_bytes": len(pub_bytes),
         "public_inputs_hex": pub_bytes.hex(),
+        "made_by": "lambdaworks_cairo_prover_tpu (JAX) on CPU",
+        "jax_cpu_seconds": round(seconds, 1),
+    })
+
+
+def rc_values(k: int) -> tuple:
+    """The values of ``bench.py``'s rc program with ``k`` values."""
+    return tuple((i * 7919 + 1) % (1 << 100) for i in range(k))
+
+
+def rc_value_count(rc_program, runner, generate_prover_args,
+                   log2_rows: int) -> int:
+    """The value count of ``bench.py:_rc_workload(log2_rows)``: the same
+    calibration (two probe runs, a linear fit aimed at 95 % of the target,
+    up to four nudges), copied so that either package can run it with its
+    own ``rc_program``, VM ``runner`` and ``generate_prover_args``."""
+    def prepad_rows(k):
+        regs, _, program_size, _ = runner(rc_program(rc_values(k)))
+        return len(regs.rows) + (program_size >> 2) + 1
+
+    t16, t64 = prepad_rows(16), prepad_rows(64)
+    slope = (t64 - t16) / 48.0
+    base = t16 - slope * 16
+    target = 1 << log2_rows
+    k = max(1, int((0.95 * target - base) / slope))
+    for _ in range(4):
+        trace, _ = generate_prover_args(rc_program(rc_values(k)))
+        if trace.n_rows == target:
+            break
+        k = max(1, int(k * (0.7 if trace.n_rows > target else 1.4)))
+    return k
+
+
+def _rc_worker(log2_rows: int, queue) -> None:
+    """Calibrate and prove bench.py's rc program with the JAX package;
+    queues (proof bytes, public-input bytes, rows, columns, seconds, k)."""
+    sys.path.insert(0, ROOT)
+    from lambdaworks_cairo_prover_tpu.cairo import native as native_vm
+    from lambdaworks_cairo_prover_tpu.cairo.air import generate_cairo_proof
+    from lambdaworks_cairo_prover_tpu.cairo.programs import rc_program
+    from lambdaworks_cairo_prover_tpu.cairo.runner import generate_prover_args
+    from lambdaworks_cairo_prover_tpu.cairo.vm import run_program
+    from lambdaworks_cairo_prover_tpu.proof.options import ProofOptions
+    from lambdaworks_cairo_prover_tpu.proof.serde import serialize_proof
+
+    runner = (native_vm.run_program_native if native_vm.available()
+              else run_program)
+    t0 = time.perf_counter()
+    k = rc_value_count(rc_program, runner, generate_prover_args, log2_rows)
+    trace, pub = generate_prover_args(rc_program(rc_values(k)))
+    proof = generate_cairo_proof(trace, pub, ProofOptions(**BENCH_OPTIONS))
+    queue.put((serialize_proof(proof), pub.serialize(), trace.n_rows,
+               len(proof.trace_ood_frame_evaluations[0]),
+               time.perf_counter() - t0, k))
+
+
+def _write_rc_digest(budget: float) -> None:
+    print(f"bench-options rc program at 2^{RC_LOG_ROWS} rows "
+          f"(budget {budget:.0f} s)...", flush=True)
+    result = _in_child(_rc_worker, (RC_LOG_ROWS,), budget)
+    if result is None:
+        print(f"{RC_DIGEST_NAME}: failed or over the budget", flush=True)
+        return
+    proof_bytes, pub_bytes, rows, cols, seconds, k = result
+    _write_json(RC_DIGEST_NAME, {
+        "program": "cairo/programs.py:rc_program(tools/make_torch_fixtures.py"
+                   ":rc_values(k)), k from rc_value_count (bench.py:"
+                   "_rc_workload)",
+        "log2_rows": RC_LOG_ROWS,
+        "k": k,
+        "layout": "Small",
+        "trace_rows": rows,
+        "trace_columns": cols,
+        "options": BENCH_OPTIONS,
+        "sha256": hashlib.sha256(proof_bytes).hexdigest(),
+        "proof_bytes": len(proof_bytes),
+        "public_inputs_sha256": hashlib.sha256(pub_bytes).hexdigest(),
+        "public_inputs_bytes": len(pub_bytes),
         "made_by": "lambdaworks_cairo_prover_tpu (JAX) on CPU",
         "jax_cpu_seconds": round(seconds, 1),
     })
@@ -519,7 +697,7 @@ def _write_cairo_fixtures(budget: float, fibs: list[int]) -> None:
 
 
 PARTS = ("small", "bench", "fused", "butterfly2", "cairo", "examples",
-         "programs", "casm", "rc")
+         "programs", "casm", "hinted", "rc", "toy", "fri_chain")
 
 
 def _write_bench_digest(budget: float, logs: list[int]) -> None:
@@ -589,8 +767,21 @@ def main() -> None:
         _write_program_fixtures(args.budget, args.jobs)
     if "casm" in parts:
         _write_casm_fixtures(args.budget)
+    if "hinted" in parts:
+        _write_hinted_digest(args.budget)
     if "rc" in parts:
         _write_rc_digest(args.budget)
+    if "toy" in parts:
+        data = _in_child(_toy_worker, (), args.budget)
+        if data is None:
+            print(f"{TOY_NAME}: failed or over the budget", flush=True)
+        else:
+            with open(os.path.join(OUT_DIR, TOY_NAME), "wb") as f:
+                f.write(data)
+            print(f"wrote {TOY_NAME}: {len(data)} bytes", flush=True)
+    if "fri_chain" in parts:
+        _write_json(FRI_CHAIN_NAME, _in_child(_fri_chain_worker, (),
+                                              args.budget))
 
 
 if __name__ == "__main__":

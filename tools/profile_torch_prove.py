@@ -4,7 +4,7 @@
 Run from the root of the repository on a machine with a CUDA GPU:
 
     python3 tools/profile_torch_prove.py [--workload simple_fibonacci|cairo_fib|cairo_hints]
-        [--log-rows 19] [--repeats 3] [--out DIR]
+        [--log-rows 19] [--repeats 3] [--fri-route chain|per-layer|both] [--out DIR]
 
 ``--workload simple_fibonacci`` (the default) proves the one-column example
 AIR at 2^``--log-rows`` rows; ``--workload cairo_fib`` runs the Cairo program
@@ -22,6 +22,15 @@ overlap) and idle share over the profiled prove, and the device time by
 group and by kernel.  With ``--out``, also writes the profiler's table
 there (a Chrome trace of a whole prove is too large to keep).  Uses the bench options: blowup 4, 80 FRI queries, coset offset
 3, grinding 20.
+
+``--fri-route`` picks the FRI commit route of the warm and profiled
+proves: ``chain`` (the default: the on-device chain of
+``ProverKernels.fri_commit_chain``), ``per-layer`` (a ``DefaultTranscript``
+subclass, which the chain's gate sends layer by layer), or ``both``: the
+warm proves take the routes in turns (chain, per-layer, per-layer, chain,
+...), every proof must equal the first, the medians of each route's warm
+prove and ``round4_fri_commit`` are printed, and the profiled prove takes
+the chain.
 """
 
 from __future__ import annotations
@@ -66,6 +75,8 @@ def main() -> int:
     ap.add_argument("--log-rows", type=int, default=19,
                     help="simple_fibonacci: log2 of the trace length")
     ap.add_argument("--repeats", type=int, default=3)
+    ap.add_argument("--fri-route", choices=("chain", "per-layer", "both"),
+                    default="chain")
     ap.add_argument("--out", help="directory for the profiler's table")
     args = ap.parse_args()
 
@@ -88,7 +99,14 @@ def main() -> int:
     from lambdaworks_cairo_prover_tpu_torch.field import cuda_field as cf
     from lambdaworks_cairo_prover_tpu_torch.ntt import cuda_ntt as cn
     from lambdaworks_cairo_prover_tpu_torch.proof.options import ProofOptions
+    from lambdaworks_cairo_prover_tpu_torch.proof.serde import serialize_proof
     from lambdaworks_cairo_prover_tpu_torch.prover.prove import prove
+    from lambdaworks_cairo_prover_tpu_torch.transcript import DefaultTranscript
+
+    class PerLayerTranscript(DefaultTranscript):
+        """The default transcript under another type: the per-layer route."""
+
+    factories = {"chain": DefaultTranscript, "per-layer": PerLayerTranscript}
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -117,28 +135,50 @@ def main() -> int:
                 "H3 ntt_dif_stages": cn.ntt_dif_stages,
                 "H4 ntt_dif_local": cn.ntt_dif_local}
 
-    def run():
+    def run(route):
         for w in wrappers.values():
             w.launches = 0
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        proof = prove(trace, pub, options, air_class, device=dev)
+        proof = prove(trace, pub, options, air_class, device=dev,
+                      transcript_factory=factories[route])
         torch.cuda.synchronize()
-        return time.perf_counter() - t0, proof._timings
+        return time.perf_counter() - t0, proof
 
-    run()  # build kernels and tables
+    def median(xs):
+        return sorted(xs)[len(xs) // 2]
+
+    first = "per-layer" if args.fri_route == "per-layer" else "chain"
+    _, proof0 = run(first)  # build kernels and tables
+    reference = serialize_proof(proof0)
     walls = []
+    by_route: dict = {}
+    turns = (("chain", "per-layer", "per-layer", "chain")
+             if args.fri_route == "both" else (first,))
     for i in range(args.repeats):
-        wall, timings = run()
+        route = turns[i % len(turns)]
+        wall, proof = run(route)
+        if serialize_proof(proof) != reference:
+            print(f"FAILED: the {route} proof differs from the first",
+                  file=sys.stderr)
+            return 1
         walls.append(wall)
-        split = ", ".join(f"{k} {v:.4f}" for k, v in timings.items())
-        print(f"[warm] prove {i}: {wall:.4f} s ({split})", flush=True)
+        by_route.setdefault(route, []).append(
+            (wall, proof._timings["round4_fri_commit"]))
+        split = ", ".join(f"{k} {v:.4f}" for k, v in proof._timings.items())
+        print(f"[warm] prove {i} ({route} FRI route): {wall:.4f} s ({split})",
+              flush=True)
+    for route, runs in by_route.items():
+        print(f"[warm] {route} FRI route, {len(runs)} proves: median warm "
+              f"prove {median([w for w, _ in runs]):.4f} s, median "
+              f"round4_fri_commit {median([f for _, f in runs]):.4f} s "
+              f"({', '.join(f'{f:.4f}' for _, f in runs)})", flush=True)
     print(f"[warm] {what}: launches per prove "
           f"{ {k: w.launches for k, w in wrappers.items()} }, peak device "
           f"memory {torch.cuda.max_memory_allocated()} bytes", flush=True)
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        wall, _ = run()
+        wall, _ = run(first)
     # device-side rows (kernels, copies, memsets) have no CPU time; the aten
     # op that launched a kernel repeats its device time, so it is left out
     by_name = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
@@ -151,11 +191,11 @@ def main() -> int:
         group = next((g for frag, g in GROUPS if frag in name), "other")
         ms0, n0 = groups.get(group, (0.0, 0))
         groups[group] = (ms0 + ms, n0 + count)
-    median = sorted(walls)[len(walls) // 2] if walls else wall
-    print(f"[profile] {what}: device busy {busy_ms:.1f} ms; "
+    mid = median(walls) if walls else wall
+    print(f"[profile] {what}, {first} FRI route: device busy {busy_ms:.1f} ms; "
           f"idle share {1 - busy_ms / (wall * 1e3):.4f} of the profiled prove "
-          f"({wall:.4f} s), {1 - busy_ms / (median * 1e3):.4f} of the median "
-          f"unprofiled warm prove ({median:.4f} s)", flush=True)
+          f"({wall:.4f} s), {1 - busy_ms / (mid * 1e3):.4f} of the median "
+          f"unprofiled warm prove ({mid:.4f} s)", flush=True)
     for group, (ms, count) in sorted(groups.items(), key=lambda r: -r[1][0]):
         print(f"[profile] {group}: {ms:.1f} ms device, {count} launches",
               flush=True)
@@ -170,6 +210,9 @@ def main() -> int:
     print(json.dumps({"card": card, "workload": args.workload,
                       "rows": trace.n_rows, "main_columns": trace.n_cols,
                       "warm_prove_s": walls, "profiled_prove_s": wall,
+                      "fri_route": args.fri_route,
+                      "round4_fri_commit_s": {
+                          r: [f for _, f in runs] for r, runs in by_route.items()},
                       "device_busy_ms": busy_ms,
                       "device_ms_by_group": {g: v[0] for g, v in groups.items()}}),
           flush=True)
