@@ -55,7 +55,17 @@ Phases (any failure exits non-zero):
  11. the toy field: a child process with LCP_FIELD=f257 proves
      simple_fibonacci at 8 rows on the card, byte-equal to the JAX
      package's GF(257) proof, verifies it, and launches none of H1-H4;
- 12. the command line once on the card (prove_and_verify, a child process).
+ 12. the command line once on the card (prove_and_verify, a child process);
+ 13. the multi-device prover (``[parallel]``): Cairo fib(70000) with the
+     bench options on a one-rank NCCL mesh (``prove(mesh=...)``,
+     shard_axis "domain"), cold and warm, at the single-device sha256,
+     verified, every kernel launched; 4 gloo ranks sharing the card (child
+     processes) prove Cairo fib(5) with test options and simple_fibonacci
+     at the fixture's 2^16 rows with the bench options, each equal to the
+     JAX package's bytes, with H1 and H3/H4 launched on every rank; H3/H4
+     against their plain versions at the local shapes of a 2^21-point,
+     52-column four-step transform over 4 ranks, (16, 52, 256, 2048) and
+     (16, 52, 512, 1024).
 
 The line before the last is a JSON object with, for each kernel, its launch
 count in phase 9's cold prove (and under ``launches_cairo_fib`` in phase 8 and
@@ -64,7 +74,9 @@ version, its time against the plain version's and the least time the card
 could take, at the Cairo run's widest shape (and under ``one_column`` at
 the one-column shape of phase 5), H3 at its widest pass, H4 at the last
 pass of the 2^21 transform (and under ``ten_stages`` at 10 stages in
-place), and the whole 2^21 transform under ``whole_ntt``; the last line is
+place), the whole 2^21 transform under ``whole_ntt``, H3/H4 at the
+four-step's shapes under ``four_step`` and the launches of phase 13's
+one-rank prove under ``launches_parallel``; the last line is
 ``{"ok": true, "device": {...}}``.  This script imports no JAX.
 """
 
@@ -102,6 +114,11 @@ HINTS_COLS = 61         # 43 main (34 + 9 range-check) + 18 auxiliary
 RC_VALUES = (250, 77, 1 << 100)
 RC_LOG_ROWS = 16        # bench.py's rc workload: 2^16 rows
 TOY_ROWS = 8            # simple_fibonacci over GF(257): an LDE of 32 points
+# the single-device proof of fibonacci_program(CAIRO_FIB_N), bench options
+CAIRO_FIB_SHA256 = ("ac3aa66d80cb107e6ad4457dd9db69d0e11dc6332e4fdb0c9aaef95e"
+                    "2100dc04")
+CAIRO_COLS = 52         # 34 main + 18 auxiliary columns of that run
+PARALLEL_RANKS = 4      # gloo ranks that share the one card in [parallel]
 
 # The card's peaks (NVIDIA's H100 SXM data sheet): 3.35 TB/s of HBM and 67
 # TFLOP/s of float32 outside the tensor cores, i.e. 33.5e12 FMA instructions
@@ -692,9 +709,10 @@ def phase_full(torch, dev) -> dict:
     return launches
 
 
-def _cairo(program, bench: bool, dev, args=None, **run_options):
+def _cairo(program, bench: bool, dev, args=None, mesh=None, **run_options):
     """generate_prover_args -> generate_cairo_proof -> verify_cairo_proof on
-    ``dev``; ``args`` reuses an earlier (trace, public inputs);
+    ``dev``; ``args`` reuses an earlier (trace, public inputs); ``mesh``
+    goes to generate_cairo_proof (the domain-sharded prover);
     ``run_options`` go to generate_prover_args (layout, cairo_version)."""
     from lambdaworks_cairo_prover_tpu_torch.cairo.air import (
         generate_cairo_proof, verify_cairo_proof)
@@ -711,7 +729,7 @@ def _cairo(program, bench: bool, dev, args=None, **run_options):
                                               **run_options)
     t_args = time.perf_counter() - t0
     t0 = time.perf_counter()
-    proof = generate_cairo_proof(trace, pub, options, device=dev)
+    proof = generate_cairo_proof(trace, pub, options, device=dev, mesh=mesh)
     t_prove = time.perf_counter() - t0
     t0 = time.perf_counter()
     require(verify_cairo_proof(proof, pub, options),
@@ -1112,6 +1130,248 @@ def phase_cli(dev) -> None:
             f"the CLI failed: {proc.stdout}\n{proc.stderr}")
 
 
+_PARALLEL_SCRIPT = r"""
+import datetime, hashlib, json, sys, time, warnings
+root, rank, world, store = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]
+bench, fib_rows = json.loads(sys.argv[5]), int(sys.argv[6])
+sys.path.insert(0, root)
+warnings.filterwarnings("ignore", category=FutureWarning,
+                        message=".*all_gather_into_tensor.*")
+import torch
+import torch.distributed as dist
+from lambdaworks_cairo_prover_tpu_torch.air.examples.simple_fibonacci import (
+    FibonacciAIR, FibonacciPublicInputs, fibonacci_trace)
+from lambdaworks_cairo_prover_tpu_torch.cairo import programs
+from lambdaworks_cairo_prover_tpu_torch.cairo.air import (
+    generate_cairo_proof, verify_cairo_proof)
+from lambdaworks_cairo_prover_tpu_torch.cairo.runner import generate_prover_args
+from lambdaworks_cairo_prover_tpu_torch.field import cuda_field as cf
+from lambdaworks_cairo_prover_tpu_torch.ntt import cuda_ntt as cn
+from lambdaworks_cairo_prover_tpu_torch.parallel.sharding import make_mesh
+from lambdaworks_cairo_prover_tpu_torch.proof.options import ProofOptions
+from lambdaworks_cairo_prover_tpu_torch.proof.serde import (
+    serialize_proof, write_proof_file)
+from lambdaworks_cairo_prover_tpu_torch.prover.prove import prove
+from lambdaworks_cairo_prover_tpu_torch.verifier.verify import verify
+
+dev = torch.device("cuda", 0)
+torch.cuda.set_device(dev)
+dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
+                        world_size=world, timeout=datetime.timedelta(seconds=600))
+mesh = make_mesh(world)
+wrappers = (cf.mont_mul, cf.add_sub_mod, cn.ntt_dif_stages, cn.ntt_dif_local)
+
+
+def counted(fn):
+    for w in wrappers:
+        w.launches = 0
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, {w.__name__: w.launches
+                                           for w in wrappers}
+
+
+out = {"rank": rank, "device": str(dev), "backend": dist.get_backend()}
+test = ProofOptions.default_test_options()
+trace, pub = generate_prover_args(programs.fibonacci_program(5), device=dev)
+proof, secs, launches = counted(lambda: generate_cairo_proof(
+    trace, pub, test, device=dev, mesh=mesh))
+out["cairo_fib5"] = {
+    "sha256": hashlib.sha256(write_proof_file(proof, pub.serialize())).hexdigest(),
+    "verified": verify_cairo_proof(proof, pub, test), "prove_s": secs,
+    "launches": launches}
+options, fpub = ProofOptions(**bench), FibonacciPublicInputs(a0=1, a1=1)
+proof, secs, launches = counted(lambda: prove(
+    fibonacci_trace([1, 1], fib_rows, device=dev), fpub, options,
+    FibonacciAIR, device=dev, mesh=mesh))
+out["simple_fibonacci"] = {
+    "sha256": hashlib.sha256(serialize_proof(proof)).hexdigest(),
+    "verified": verify(proof, fpub, options, FibonacciAIR), "prove_s": secs,
+    "launches": launches}
+dist.barrier()  # no rank tears its connections down while another uses them
+dist.destroy_process_group()
+print("PAR=" + json.dumps(out), flush=True)
+"""
+
+
+def four_step_kernels(torch, dev) -> dict:
+    """H3 and H4 against their plain versions, exactly, and their times at
+    the local transforms of a 2^LDE_LOG-point, CAIRO_COLS-column transform
+    over PARALLEL_RANKS ranks (four_step_plan: R x C points; C/D rows of R
+    points, then R/D rows of C points): every pass of ``ntt_passes`` of
+    each, on seeded random columns; the plain version goes one trace
+    column (rows x points) at a time."""
+    from lambdaworks_cairo_prover_tpu_torch.ntt import cuda_ntt as cn
+    from lambdaworks_cairo_prover_tpu_torch.parallel.four_step import (
+        four_step_plan)
+
+    d = PARALLEL_RANKS
+    r, c = four_step_plan(1 << LDE_LOG, d)
+    out = {"ntt_dif_stages": [], "ntt_dif_local": []}
+    for rows, n in ((c // d, r), (r // d, c)):
+        log_n = n.bit_length() - 1
+        tw = cn.twiddle_table(log_n, False, dev)
+        twp = cn.packed_twiddle_table(log_n, False, dev)
+        cn.bitrev_indices(log_n, dev)  # built outside the plain times
+        x = random_columns(torch, CAIRO_COLS * rows, n, dev)
+        dst = torch.empty_like(x)
+        shape = f"(16, {CAIRO_COLS}, {rows}, {n})"
+        for p in cn.ntt_passes(log_n):
+            if p.local:
+                name, n_tw = "ntt_dif_local", 1 << p.n_stages
+
+                def run(src, out_):
+                    return cn.ntt_dif_local(src, out_, twp, p.n_stages,
+                                            p.natural)
+
+                def plain(v):
+                    return cn.dif_local_plain(v, tw, p.n_stages, p.natural)
+            else:
+                name = "ntt_dif_stages"
+                n_tw = (1 << (p.log_m_hi + 1)) - (
+                    1 << (p.log_m_hi + 1 - p.n_stages))
+
+                def run(src, out_):
+                    return cn.ntt_dif_stages(src, out_, twp, p.log_m_hi,
+                                             p.n_stages)
+
+                def plain(v):
+                    return cn.dif_stages_plain(v, tw, p.log_m_hi, p.n_stages)
+            got = run(x, dst).clone()
+            err, plain_ms = 0, 0.0
+            for k in range(CAIRO_COLS):
+                part = slice(k * rows, (k + 1) * rows)
+                want, t = timed(torch, lambda: plain(x[:, part]))
+                plain_ms += t
+                err = max(err, max_abs_err(torch, got[:, part], want))
+            del got
+            n_points = x[0].numel()
+            rec = {"shape": shape, "log_m_hi": p.log_m_hi,
+                   "n_stages": p.n_stages, "natural": p.natural,
+                   "ms": cuda_ms(torch, lambda: run(x, dst), 10),
+                   "plain_ms": plain_ms, "max_abs_err": err,
+                   # the array read and written once, the pass's twiddles
+                   # read once
+                   **bound(2 * ELEM_BYTES * n_points + TWIDDLE_BYTES * n_tw,
+                           butterfly_ops(n_points, p.log_m_hi, p.n_stages))}
+            out[name].append(rec)
+            log(f"[parallel] {name} at {shape}, stages {p.log_m_hi} .. "
+                f"{p.log_m_hi - p.n_stages + 1}"
+                f"{', natural order' if p.natural else ''}: max_abs_err "
+                f"{err}; {rec['ms']:.4f} ms kernel, {plain_ms:.4f} ms plain, "
+                f"{bound_text(rec)}")
+            require(err == 0, f"{name} disagrees with its plain version at "
+                    f"the four-step shape {shape}")
+        del x, dst
+    return out
+
+
+def phase_parallel(torch, dev) -> dict:
+    """The multi-device prover (``prove(mesh=...)``, parallel/):
+    Cairo fib(CAIRO_FIB_N) at full width on a one-rank NCCL mesh (the
+    single-device sha256, cold and warm, verified; every kernel launched);
+    PARALLEL_RANKS gloo ranks sharing the card (child processes: the
+    four-step's all-to-alls, the halo, the sharded trees and openings)
+    prove Cairo fib(5) and simple_fibonacci with the bench options to the
+    JAX package's bytes and launch H1 and H3/H4 on every rank; and H3/H4 at
+    the four-step's local shapes.  Returns the one-rank run's launches and
+    the four-step kernel records."""
+    import datetime
+    import tempfile
+
+    import torch.distributed as dist
+
+    from lambdaworks_cairo_prover_tpu_torch.cairo import programs
+    from lambdaworks_cairo_prover_tpu_torch.parallel.sharding import make_mesh
+
+    program = programs.fibonacci_program(CAIRO_FIB_N)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+            rank=0, world_size=1, timeout=datetime.timedelta(seconds=600))
+        try:
+            mesh = make_mesh(1)
+            reset_counts(torch)
+            cold = _cairo(program, bench=True, dev=dev, mesh=mesh)
+            launches = read_counts("parallel")
+            peak = torch.cuda.max_memory_allocated()
+            warm = _cairo(program, bench=True, dev=dev, mesh=mesh,
+                          args=(cold["trace"], cold["pub"]))
+        finally:
+            dist.destroy_process_group()
+    digest = hashlib.sha256(cold["bytes"]).hexdigest()
+    log(f"[parallel] one NCCL rank, fibonacci_program({CAIRO_FIB_N}): "
+        f"{cold['trace'].n_rows} rows x {cold['columns']} columns, "
+        f"shard_axis='domain', bench options")
+    for tag, r in (("cold", cold), ("warm", warm)):
+        rounds = ", ".join(f"{k} {v:.3f}" for k, v in r["timings"].items())
+        log(f"[parallel] {tag} prove {r['prove_s']:.3f} s ({rounds}); verify "
+            f"{r['verify_s']:.3f} s, accepted; wrong public inputs rejected")
+    log(f"[parallel] torch.cuda.max_memory_allocated {peak} bytes "
+        f"({peak / 2**30:.2f} GiB); sha256 {digest}, equal to the "
+        f"single-device proof's: {digest == CAIRO_FIB_SHA256}")
+    require(digest == CAIRO_FIB_SHA256 and warm["bytes"] == cold["bytes"],
+            "the one-rank sharded proof differs from the single-device proof")
+
+    with open(os.path.join(FIXTURES, "cairo_fib5_test_options.proof"),
+              "rb") as f:
+        want_fib5 = hashlib.sha256(f.read()).hexdigest()
+    with open(os.path.join(FIXTURES, "simple_fibonacci_bench_digest.json")) as f:
+        fib_digest = json.load(f)
+    require(fib_digest["options"] == BENCH, "digest fixture has other options")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        # each rank writes to a file: a full pipe would stall a rank inside
+        # a collective while this process waits on another rank
+        logs = [open(os.path.join(tmp, f"rank{r}.log"), "w+")
+                for r in range(PARALLEL_RANKS)]
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", _PARALLEL_SCRIPT, ROOT, str(r),
+             str(PARALLEL_RANKS), os.path.join(tmp, "store"),
+             json.dumps(BENCH), str(fib_digest["trace_length"])],
+            cwd=ROOT, stdout=logs[r], stderr=subprocess.STDOUT)
+            for r in range(PARALLEL_RANKS)]
+        try:
+            deadline = time.monotonic() + 600
+            for p in procs:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            texts = []
+            for f in logs:
+                f.seek(0)
+                texts.append(f.read())
+                f.close()
+    ranks = []
+    for r, (p, text) in enumerate(zip(procs, texts)):
+        lines = [ln for ln in text.splitlines() if ln.startswith("PAR=")]
+        require(p.returncode == 0 and lines, f"[parallel] gloo rank {r} "
+                f"failed (exit code {p.returncode}):\n{text[-4000:]}")
+        ranks.append(json.loads(lines[-1][len("PAR="):]))
+    for res in ranks:
+        for name, want in (("cairo_fib5", want_fib5),
+                           ("simple_fibonacci", fib_digest["sha256"])):
+            got = res[name]
+            log(f"[parallel] gloo rank {res['rank']} of {PARALLEL_RANKS} on "
+                f"{res['device']}, {name}: prove {got['prove_s']:.3f} s, "
+                f"equal to the JAX package's: {got['sha256'] == want}, "
+                f"verified {got['verified']}, launches {got['launches']}")
+            require(got["sha256"] == want and got["verified"],
+                    f"[parallel] rank {res['rank']}: the sharded {name} proof "
+                    f"differs from the JAX package's or does not verify")
+            n_ntt = (got["launches"]["ntt_dif_stages"]
+                     + got["launches"]["ntt_dif_local"])
+            require(got["launches"]["mont_mul"] > 0 and n_ntt > 0,
+                    f"[parallel] rank {res['rank']}: no H1 or no H3/H4 launch")
+    log(f"[parallel] {PARALLEL_RANKS} gloo ranks on one card: "
+        f"{time.perf_counter() - t0:.1f} s with the processes' start")
+    return {"launches": launches, "four_step": four_step_kernels(torch, dev)}
+
+
 SOURCES = {
     "mont_mul": ("lambdaworks_cairo_prover_tpu_torch/csrc/field_ops.cu",
                  "lambdaworks_cairo_prover_tpu/field/pallas_mul.py:126"),
@@ -1160,6 +1420,7 @@ def main() -> int:
         phase(phase_rc, dev)
         phase(phase_toy_field)
         phase(phase_cli, dev)
+        par = phase(phase_parallel, torch, dev)
         bad = sorted(m for m in sys.modules if m.split(".")[0] in
                      ("jax", "jaxlib", "lambdaworks_cairo_prover_tpu"))
         require(not bad, f"imported {bad}")
@@ -1174,12 +1435,15 @@ def main() -> int:
          "replaces": SOURCES[name][1], "launches": launches[name],
          "launches_cairo_fib": launches_cairo_fib[name],
          "launches_simple_fibonacci": launches_fib[name],
+         "launches_parallel": par["launches"][name],
          "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
          "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
          "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
          **{k: v for k, v in rec.items() if k not in (
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-             "library_ms")}}
+             "library_ms")},
+         **({"four_step": par["four_step"][name]}
+            if name in par["four_step"] else {})}
         for name, rec in kern.items()
     ]
     log(f"[total] {time.perf_counter() - t_start:.1f} s")

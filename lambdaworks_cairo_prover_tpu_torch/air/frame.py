@@ -31,9 +31,11 @@ class _DeviceRow:
         if self._shift == 0:
             return self._ctx.wrap(self._data[:, col, :])
         if col not in self._cols:
-            self._cols[col] = torch.roll(self._data[:, col, :], -self._shift,
-                                         dims=1)
+            self._cols[col] = self._shifted(col)
         return self._ctx.wrap(self._cols[col])
+
+    def _shifted(self, col: int) -> torch.Tensor:
+        return torch.roll(self._data[:, col, :], -self._shift, dims=1)
 
 
 class DeviceFrame:

@@ -659,13 +659,16 @@ class CairoAIR(AIR):
 
 
 def generate_cairo_proof(trace: TraceTable, pub_inputs: PublicInputs,
-                         proof_options: ProofOptions, *, device="cuda"):
+                         proof_options: ProofOptions, *, device="cuda",
+                         mesh=None, shard_axis: str = "domain"):
     """Prove on ``device`` (the first CUDA card unless the caller names
     another device or the CPU).  Raises `ProvingError` where a CUDA device
-    is asked for and there is none."""
+    is asked for and there is none.  ``mesh`` and ``shard_axis``: the
+    multi-device prover of ``prover.prove.prove``."""
     from ..prover.prove import prove
 
-    return prove(trace, pub_inputs, proof_options, CairoAIR, device=device)
+    return prove(trace, pub_inputs, proof_options, CairoAIR, device=device,
+                 mesh=mesh, shard_axis=shard_axis)
 
 
 def verify_cairo_proof(proof, pub_inputs: PublicInputs,

@@ -32,7 +32,9 @@ def offset_powers(offset: int, n: int, device) -> torch.Tensor:
     return _powers_cache[key]
 
 
-def _transform(x: torch.Tensor, inverse: bool) -> torch.Tensor:
+def transform(x: torch.Tensor, inverse: bool) -> torch.Tensor:
+    """The DFT along the last axis, natural order both ends, not scaled by
+    1/n: the local transforms of the four-step NTT (parallel/four_step.py)."""
     if x.device.type == "cpu" or not SPARSE_P:
         return cuda_ntt.ntt_plain(x, inverse)
     return cuda_ntt.ntt_cuda(x, inverse)
@@ -40,7 +42,7 @@ def _transform(x: torch.Tensor, inverse: bool) -> torch.Tensor:
 
 def ntt(x: torch.Tensor) -> torch.Tensor:
     """Forward transform: coefficients -> evaluations at w^i (natural order)."""
-    return _transform(x, inverse=False)
+    return transform(x, inverse=False)
 
 
 def intt(x: torch.Tensor) -> torch.Tensor:
@@ -48,7 +50,7 @@ def intt(x: torch.Tensor) -> torch.Tensor:
     n = x.shape[-1]
     if n == 1:
         return x.clone()
-    y = _transform(x, inverse=True)
+    y = transform(x, inverse=True)
     n_inv = fd.from_int(pow(n, P - 2, P), device=x.device)
     return fd.mul(y, n_inv.reshape((N_LIMBS,) + (1,) * (y.dim() - 1)))
 

@@ -19,7 +19,7 @@ from ..air.frame import DeviceFrame
 from ..field import device as fd
 from ..field.params import N_LIMBS, P, R2
 from ..hash import keccak_device as kd
-from ..hash.merkle import tree_levels
+from ..hash.merkle import MerkleTree, fetch_tree, tree_levels
 from ..ntt import core as nttc
 from ..ntt import cuda_ntt as cn
 
@@ -39,7 +39,6 @@ class ProverKernels:
         self.device = torch.device(device)
         dev = self.device
         n = air.trace_length()
-        N = domain.lde_size
         bound = air.composition_poly_degree_bound()
         ctxc = air.context
 
@@ -49,21 +48,23 @@ class ProverKernels:
         self.boundary_cols = [c.col for c in bc_probe.constraints]
         self.distinct_steps = list(dict.fromkeys(self.boundary_steps))
 
-        # ---- domain tables ----
+        # ---- domain tables (over this device's points: _lde_values,
+        # _lde_pow and _tile are where a sharded subclass builds its block) ----
         h = domain.coset_offset
         w = domain.lde_primitive_root
-        t = {"lde_values": domain.lde_values(device=dev)}
+        t = {"lde_values": self._lde_values()}
         for name, e in [("d_adj_boundary", bound - n)] + [
             (f"d_adj_{d}", bound - n * (d - 1))
             for d in sorted(set(ctxc.transition_degrees))
         ]:
-            t[name] = domain.lde_pow(e, device=dev)
+            t[name] = self._lde_pow(e)
         blowup = domain.blowup_factor
         hn = pow(h, n, P)
         wb = pow(w, n, P)
         zf = fd.from_ints([pow((hn * pow(wb, j, P) - 1) % P, P - 2, P)
                            for j in range(blowup)], device=dev)
-        t["zerofier_inv"] = zf.repeat(1, N // blowup)
+        t["zerofier_inv"] = self._tile(zf)
+        n_points = t["lde_values"].shape[1]
         for count in air.transition_exemption_counts():
             prod = None
             for r in air.exemption_roots(count):
@@ -76,8 +77,20 @@ class ProverKernels:
                      for s in self.distinct_steps]
             inv_big = fd.batch_inverse(torch.cat(diffs, dim=1))
             for i, s in enumerate(self.distinct_steps):
-                t[f"bz_inv_{s}"] = inv_big[:, i * N:(i + 1) * N]
+                t[f"bz_inv_{s}"] = inv_big[:, i * n_points:(i + 1) * n_points]
         self.tables = t
+
+    def _lde_values(self) -> torch.Tensor:
+        """(16, N) Montgomery limbs of the LDE coset points h·w^i."""
+        return self.domain.lde_values(device=self.device)
+
+    def _lde_pow(self, exponent: int) -> torch.Tensor:
+        """(16, N) limbs of d_i^exponent over the LDE coset."""
+        return self.domain.lde_pow(exponent, device=self.device)
+
+    def _tile(self, row: torch.Tensor) -> torch.Tensor:
+        """(16, k) -> (16, N): entry i is row[i mod k] (k divides N)."""
+        return row.repeat(1, self.domain.lde_size // row.shape[1])
 
     def _probe_challenges(self):
         """Dummy rap challenges for structural inspection (boundary layout)."""
@@ -102,6 +115,20 @@ class ProverKernels:
         """All-column openings at the query indices: (16, cols, len(idxs))."""
         ix = torch.tensor(idxs, dtype=torch.int64, device=lde_evals.device)
         return lde_evals.index_select(-1, ix)
+
+    def gather_points(self, src: torch.Tensor, idxs: list[int],
+                      length: int) -> torch.Tensor:
+        """The values of src (16, ..., length) at the points idxs, on this
+        device: (16, ..., len(idxs))."""
+        return self.gather_columns(src, idxs)
+
+    def tree(self, levels) -> MerkleTree:
+        """The Merkle tree over levels that a round returned."""
+        return fetch_tree(levels)
+
+    def coeffs_to_ints(self, coeffs: torch.Tensor, length: int) -> list:
+        """The ``length`` coefficients of (16, length) limbs as host ints."""
+        return fd.to_ints(coeffs)
 
     # ------------------------------------------------------------------
     # round 2: whole-domain constraint evaluation + H + commit
@@ -133,8 +160,7 @@ class ProverKernels:
             summed = nttc.sum_reduce(fd.mul(nums, coeff), axis=1)
             accumulate(fd.mul(summed, tc[f"bz_inv_{step}"]))
 
-        frame = DeviceFrame(lde_evals, ctxc.transition_offsets,
-                            self.domain.blowup_factor)
+        frame = self._frame(lde_evals)
         rap_fv = air.wrap_rap_challenges(frame.ctx, rap_arrays)
         evals = air.compute_transition(frame, rap_fv)
         groups: dict = {}
@@ -163,6 +189,11 @@ class ProverKernels:
             accumulate(summed)
         return acc
 
+    def _frame(self, lde_evals: torch.Tensor) -> DeviceFrame:
+        """The transition frame: row k is the LDE shifted by k·blowup."""
+        return DeviceFrame(lde_evals, self.air.context.transition_offsets,
+                           self.domain.blowup_factor)
+
     def round2(self, lde_evals, boundary_ab, transition_ab, boundary_values,
                rap_arrays):
         """boundary_ab: (alphas, betas), each (16, n_bc); transition_ab:
@@ -187,6 +218,10 @@ class ProverKernels:
     # round 3: OOD evaluations via powers-dot
     # ------------------------------------------------------------------
 
+    def powers(self, base: int, n: int) -> torch.Tensor:
+        """(16, n) powers [1, base, base^2, ...] for :meth:`eval_at_powers`."""
+        return fd.powers(base, n, device=self.device)
+
     def eval_at_powers(self, coeffs: torch.Tensor, powers_table: torch.Tensor):
         """sum_i coeffs[..., i] * powers[i], out of Montgomery form:
         (16, ...) canonical residues."""
@@ -203,9 +238,17 @@ class ProverKernels:
         gamma_arr: (16, n_offsets*total_cols) trace gammas;
         gammas_hh: (2, 16, 1); ood_rows: n_offsets (16, total_cols) rows and
         a last (16, 2) row holding H1(z^2), H2(z^2)."""
-        N = self.domain.lde_size
+        acc = self._deep_evaluations(lde_evals, h1_lde, h2_lde, point_arrs,
+                                     gamma_arr, gammas_hh, ood_rows)
+        coeffs = nttc.interpolate_offset_fft(acc, self.domain.coset_offset)
+        return coeffs[:, :self.air.trace_length()].contiguous()
+
+    def _deep_evaluations(self, lde_evals, h1_lde, h2_lde, point_arrs,
+                          gamma_arr, gammas_hh, ood_rows) -> torch.Tensor:
+        """The DEEP composition's values at this device's LDE points."""
         n_offsets = len(self.air.context.transition_offsets)
         lv = self.tables["lde_values"]
+        N = lv.shape[1]
         inv_all = fd.batch_inverse(torch.cat(
             [fd.sub(lv, point_arrs[k]) for k in range(n_offsets + 1)], dim=1))
         acc = None
@@ -225,8 +268,7 @@ class ProverKernels:
             term = fd.mul(fd.mul(fd.sub(h_lde, ood_rows[n_offsets][:, half:half + 1]),
                                  inv_z), gammas_hh[half])
             acc = term if acc is None else fd.add(acc, term)
-        coeffs = nttc.interpolate_offset_fft(acc, self.domain.coset_offset)
-        return coeffs[:, :self.air.trace_length()].contiguous()
+        return acc
 
     # ------------------------------------------------------------------
     # FRI layers
@@ -238,8 +280,13 @@ class ProverKernels:
                                          domain.coset_offset)
         return evals, tree_levels(kd.hash_felt_leaves(fd.from_mont(evals)))
 
+    def _fold(self, coeffs: torch.Tensor, zeta: torch.Tensor,
+              length: int) -> torch.Tensor:
+        """even + zeta·odd of ``length`` coefficients: length / 2 of them."""
+        return fd.add(coeffs[:, 0::2], fd.mul(coeffs[:, 1::2], zeta))
+
     def fri_fold_layer(self, coeffs, zeta_arr, offset_int, domain_size):
-        folded = fd.add(coeffs[:, 0::2], fd.mul(coeffs[:, 1::2], zeta_arr))
+        folded = self._fold(coeffs, zeta_arr, coeffs.shape[-1])
         evals = nttc.evaluate_offset_fft(folded, 1, domain_size, offset_int)
         leaves = kd.hash_felt_leaves(fd.from_mont(evals))
         return folded, evals, tree_levels(leaves)
@@ -292,8 +339,7 @@ class ProverKernels:
             levels_out.append(levels)
         if final_fold:
             _, zeta = draw(state)
-            last = fd.from_mont(fd.add(coeffs[:, 0:1],
-                                       fd.mul(coeffs[:, 1:2], zeta)))
+            last = fd.from_mont(self._fold(coeffs, zeta, 2))
             # 16 limbs of 16 bits -> 4 lanes of 64 (p < 2^252: no sign bit)
             shifts = torch.arange(0, 64, 16, dtype=torch.int64,
                                   device=coeffs.device)

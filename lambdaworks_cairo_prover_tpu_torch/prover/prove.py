@@ -20,7 +20,7 @@ from ..field import host as fh
 from ..field.params import (FIELD_BIT_SIZE, N_LIMBS, P,
                             get_primitive_root_of_unity)
 from ..hash.keccak_host import keccak256_batch
-from ..hash.merkle import MerkleTree, fetch_tree
+from ..hash.merkle import MerkleTree
 from ..hash import keccak_device as kd
 from ..proof.options import ProofOptions
 from ..proof.stark import DeepPolynomialOpenings, FriDecommitment, StarkProof
@@ -148,6 +148,7 @@ def _fri_commit(kern, domain: Domain, deep_coeffs: torch.Tensor, transcript,
 
     fri_layers = []
     coeffs = deep_coeffs
+    n_coeffs = domain.interpolation_domain_size  # the global length of coeffs
     offset_int, domain_size = domain.coset_offset, N
     if use_chain:
         state = torch.from_numpy(
@@ -159,11 +160,12 @@ def _fri_commit(kern, domain: Domain, deep_coeffs: torch.Tensor, transcript,
             if i > 0:
                 transcript_to_field(transcript)  # the device drew this zeta
                 domain_size //= 2
-            tree = fetch_tree(levels)
+            tree = kern.tree(levels)
             tree._root_bytes = kd.digest_to_bytes(rows[i])
             fri_layers.append((evals, tree, domain_size))
             transcript.append(tree.root)
         offset_int, domain_size = plan[-1]
+        n_coeffs >>= len(plan)
         if full_chain:
             transcript_to_field(transcript)  # the final fold's zeta
             fri_last_value = int.from_bytes(rows[-1].tobytes(), "little")
@@ -171,7 +173,7 @@ def _fri_commit(kern, domain: Domain, deep_coeffs: torch.Tensor, transcript,
             return fri_layers, fri_last_value
     else:
         evals0, levels0 = kern.fri_first_layer(deep_coeffs)
-        tree0 = fetch_tree(levels0)
+        tree0 = kern.tree(levels0)
         fri_layers.append((evals0, tree0, N))
         transcript.append(tree0.root)
 
@@ -181,7 +183,7 @@ def _fri_commit(kern, domain: Domain, deep_coeffs: torch.Tensor, transcript,
         offset_int = offset_int * offset_int % P
         domain_size //= 2
         if host_coeffs is None and domain_size <= _HOST_FRI_THRESHOLD:
-            host_coeffs = fd.to_ints(coeffs)
+            host_coeffs = kern.coeffs_to_ints(coeffs, n_coeffs)
         if host_coeffs is not None:
             host_coeffs = _host_fold(host_coeffs, zeta)
             evals = _host_evaluate_offset_fft(host_coeffs, domain_size,
@@ -192,13 +194,15 @@ def _fri_commit(kern, domain: Domain, deep_coeffs: torch.Tensor, transcript,
             coeffs, evals, levels = kern.fri_fold_layer(
                 coeffs, fd.from_int(zeta, device=device), offset_int,
                 domain_size)
-            tree = fetch_tree(levels)
+            n_coeffs //= 2
+            tree = kern.tree(levels)
         fri_layers.append((evals, tree, domain_size))
         transcript.append(tree.root)
 
     zeta = transcript_to_field(transcript)
     # final fold on host: the remaining polynomial is tiny
-    last_coeffs = host_coeffs if host_coeffs is not None else fd.to_ints(coeffs)
+    last_coeffs = (host_coeffs if host_coeffs is not None
+                   else kern.coeffs_to_ints(coeffs, n_coeffs))
     folded_host = _host_fold(last_coeffs, zeta)
     fri_last_value = folded_host[0] if folded_host else 0
     transcript.append(fh.to_bytes_be(fri_last_value))
@@ -235,6 +239,8 @@ def prove(
     air_class,
     *,
     device,
+    mesh=None,
+    shard_axis: str = "domain",
     instrument: bool = False,
     transcript_factory=DefaultTranscript,
 ) -> StarkProof:
@@ -245,7 +251,30 @@ def prove(
     CPU device runs their plain PyTorch versions.  The proof's per-round
     host times (seconds, device work included) are on ``proof._timings``;
     ``round1_aux_build`` (the RAP auxiliary trace, where the AIR has one) is
-    part of ``round1``, the ``round4_*`` entries are parts of ``round4``."""
+    part of ``round1``, the ``round4_*`` entries are parts of ``round4``.
+
+    With ``mesh`` (``parallel.sharding.make_mesh``: one axis over the
+    default process group) every rank calls ``prove`` with the same
+    arguments and its own device, of the mesh's device type, and the ranks
+    prove together (SPMD); ``shard_axis`` selects the layout:
+
+    * ``"domain"`` — the LDE-domain axis of every round-1..4 tensor is
+      block-sharded over the ranks; NTT, iNTT and LDE run as four-step
+      transforms whose transposes are all-to-alls (parallel/four_step.py);
+      constraints, DEEP and Merkle leaves are rank-local; the trace needs
+      at least as many rows as the mesh has ranks.
+    * ``"columns"`` — each rank interpolates and extends its block of trace
+      columns with no communication, the blocks are all-gathered, and the
+      rest runs as on one device on every rank, the domain replicated.
+
+    Every rank returns the same proof, byte-equal to the single-device
+    proof for any mesh size and either layout."""
+    if shard_axis not in ("domain", "columns"):
+        raise ProvingError(f"unknown shard_axis {shard_axis!r}; expected "
+                           f"'domain' or 'columns'")
+    if mesh is not None and torch.device(device).type != mesh.device_type:
+        raise ProvingError(f"device {device} is not of the mesh's device "
+                           f"type {mesh.device_type!r}")
     device = proving_device(device)
     timings = {}
     t0 = time.perf_counter()
@@ -254,6 +283,10 @@ def prove(
         raise ProvingError(
             f"trace length must be a power of two, got {main_trace.n_rows}"
         )
+    if (mesh is not None and shard_axis == "domain"
+            and main_trace.n_rows % mesh.size()):
+        raise ProvingError(f"a trace of {main_trace.n_rows} rows cannot be "
+                           f"domain-sharded over {mesh.size()} ranks")
     main_trace = main_trace.to(device)
     air = air_class(main_trace.n_rows, pub_inputs, proof_options)
     domain = Domain(air)
@@ -262,7 +295,12 @@ def prove(
             f"LDE domain size 2^{domain.lde_size.bit_length() - 1} exceeds "
             f"the maximum 2^{ProofOptions.NUM_BITS_MAX_DOMAIN_SIZE}"
         )
-    kern = get_kernels(air, domain, device)
+    if mesh is None:
+        kern = get_kernels(air, domain, device)
+    else:
+        from ..parallel.sharded_kernels import get_sharded_kernels
+
+        kern = get_sharded_kernels(air, domain, mesh, device, shard_axis)
 
     def arr(ints) -> torch.Tensor:
         return fd.from_ints(list(ints), device=device)
@@ -278,7 +316,7 @@ def prove(
     # ======================= Round 1: RAP =================================
     t1 = time.perf_counter()
     trace_polys, lde_evals, main_levels = kern.interpolate_commit(main_trace.data)
-    main_tree = fetch_tree(main_levels)
+    main_tree = kern.tree(main_levels)
     transcript.append(main_tree.root)
     lde_trace_merkle_roots = [main_tree.root]
     lde_trace_merkle_trees = [main_tree]
@@ -303,7 +341,7 @@ def prove(
             aux_trace.data.to(device))
         trace_polys = torch.cat([trace_polys, aux_polys], dim=1)
         lde_evals = torch.cat([lde_evals, aux_lde], dim=1)
-        aux_tree = fetch_tree(aux_levels)
+        aux_tree = kern.tree(aux_levels)
         transcript.append(aux_tree.root)
         lde_trace_merkle_roots.append(aux_tree.root)
         lde_trace_merkle_trees.append(aux_tree)
@@ -332,7 +370,7 @@ def prove(
     h1_coeffs, h2_coeffs, h1_lde, h2_lde, comp_levels = kern.round2(
         lde_evals, boundary_ab, transition_ab, boundary_values, rap_arrays
     )
-    composition_tree = fetch_tree(comp_levels)
+    composition_tree = kern.tree(comp_levels)
     transcript.append(composition_tree.root)
     timings["round2"] = time.perf_counter() - t2
 
@@ -341,12 +379,12 @@ def prove(
     z = _sample_z_ood(domain, transcript)
     z2 = z * z % P
 
-    pw_z2 = fd.powers(z2, h1_coeffs.shape[-1], device=device)
+    pw_z2 = kern.powers(z2, N // 2)  # H1, H2: N/2 coefficients each
     h1_dev = kern.eval_at_powers(h1_coeffs, pw_z2)
     h2_dev = kern.eval_at_powers(h2_coeffs, pw_z2)
     ood_dev = []
     for k in offsets:
-        pw = fd.powers(z * pow(g, k, P) % P, n, device=device)
+        pw = kern.powers(z * pow(g, k, P) % P, n)
         ood_dev.append(kern.eval_at_powers(trace_polys, pw))  # (16, total_cols)
     # one copy to the host for all round-3 values
     r3_flat = fd.to_ints(torch.cat(
@@ -416,9 +454,8 @@ def prove(
     limb_parts, limb_off = [], [0]
     dig_parts, dig_off, dig_levels = [], [0], []
 
-    def queue_limbs(src: torch.Tensor, idxs: list[int]) -> int:
-        ix = torch.tensor(idxs, dtype=torch.int64, device=device)
-        part = src.index_select(-1, ix).reshape(N_LIMBS, -1)
+    def queue_limbs(src: torch.Tensor, idxs: list[int], length: int) -> int:
+        part = kern.gather_points(src, idxs, length).reshape(N_LIMBS, -1)
         limb_parts.append(part)
         limb_off.append(limb_off[-1] + part.shape[1])
         return len(limb_parts) - 1
@@ -438,11 +475,11 @@ def prove(
             layer_plans.append(("host", [evals[i] for i in both_idx],
                                 tree.get_proofs(both_idx)))
         else:
-            layer_plans.append(("dev", queue_limbs(evals, both_idx),
+            layer_plans.append(("dev", queue_limbs(evals, both_idx, ds),
                                 queue_tree(tree, both_idx)))
-    h1_pos = queue_limbs(h1_lde, open_idxs)
-    h2_pos = queue_limbs(h2_lde, open_idxs)
-    rows_pos = queue_limbs(lde_evals, open_idxs)  # (16, cols * nq), col-major
+    h1_pos = queue_limbs(h1_lde, open_idxs, N)
+    h2_pos = queue_limbs(h2_lde, open_idxs, N)
+    rows_pos = queue_limbs(lde_evals, open_idxs, N)  # (16, cols * nq), col-major
     comp_pos = queue_tree(composition_tree, open_idxs)
     trace_pos = [queue_tree(t, open_idxs) for t in lde_trace_merkle_trees]
 

@@ -30,7 +30,9 @@ for mod in ("cli", "interop", "air.trace", "cairo.air", "cairo.cairo_mem",
             "cairo.vm", "cairo.builtins", "cairo.hints", "cairo.hints_stdlib",
             "cairo.stdlib", "cairo.casm", "air.examples.fibonacci_2_columns",
             "air.examples.quadratic_air", "air.examples.fibonacci_rap",
-            "air.examples.dummy_air", "ntt.poly_host", "prover.debug"):
+            "air.examples.dummy_air", "ntt.poly_host", "prover.debug",
+            "parallel.sharding", "parallel.four_step",
+            "parallel.sharded_kernels"):
     assert pkg.__name__ + "." + mod in names, mod
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "triton",

@@ -8,7 +8,8 @@ Run once on a CPU host with JAX installed:
 
 ``--only`` names the parts to write (all by default): ``small``, ``bench``,
 ``fused``, ``butterfly2``, ``cairo``, ``examples``, ``programs``, ``casm``,
-``hinted``, ``rc``, ``toy``, ``fri_chain``, in the order of the list below.
+``hinted``, ``rc``, ``toy``, ``fri_chain``, ``four_step``, in the order of
+the list below.
 
 Writes into tests/fixtures/torch_port/:
 
@@ -63,6 +64,11 @@ Writes into tests/fixtures/torch_port/:
   state of :func:`fri_chain_input`, for a partial plan and for the full
   chain: the sha256 of the stacked roots (u32 words), of each layer's
   evaluations and of the last coefficients (uint32 limbs).
+* ``four_step_ntt.json`` (``four_step``) — the sha256 of the JAX package's
+  ``parallel/four_step.py:ShardedNTT.transform`` outputs on an 8-device CPU
+  mesh (uint32 limbs, gathered whole), forward and inverse at 2^10 and
+  2^12 points, on inputs made by :func:`fused_input` with the seeds of
+  ``FOUR_STEP_SEEDS``.
 * ``synthetic_contract.casm`` and ``cairo1_synthetic_test_options.proof`` —
   a small CASM contract class (:func:`synthetic_casm`: Cairo1 core hints
   ``TestLessThan``, ``AllocSegment`` and ``DivMod``, a range-check cell),
@@ -137,6 +143,10 @@ TOY_NAME = "simple_fibonacci_8_f257_test_options.proof"
 TOY_ROWS = 8
 FRI_CHAIN_NAME = "fri_chain.json"
 FRI_CHAIN_LOG, FRI_CHAIN_SEED = 8, 60  # 2^8 rows: an LDE of 2^10 points
+FOUR_STEP_NAME = "four_step_ntt.json"
+FOUR_STEP_DEVICES = 8
+FOUR_STEP_SEEDS = {(10, "forward"): 70, (10, "inverse"): 71,
+                   (12, "forward"): 72, (12, "inverse"): 73}
 CASM_NAME = "synthetic_contract.casm"
 CASM_PROOF_NAME = "cairo1_synthetic_test_options.proof"
 EXAMPLES = ("fibonacci_2_columns", "quadratic_air", "fibonacci_rap",
@@ -292,6 +302,39 @@ def _fri_chain_worker(queue) -> None:
             "roots_hex": np.asarray(roots, dtype=np.uint32).tobytes().hex(),
             "evals_sha256": [sha(e) for e in evals],
             "last_coeffs_sha256": sha(last)}
+    queue.put(record)
+
+
+def _four_step_worker(queue) -> None:
+    """ShardedNTT.transform on a mesh of FOUR_STEP_DEVICES CPU devices (the
+    mesh of the JAX package's tests) for each case of FOUR_STEP_SEEDS."""
+    os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "") +
+                               " --xla_force_host_platform_device_count="
+                               f"{FOUR_STEP_DEVICES}").strip()
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    sys.path.insert(0, ROOT)
+    from lambdaworks_cairo_prover_tpu.parallel.four_step import ShardedNTT
+    from lambdaworks_cairo_prover_tpu.parallel.sharding import make_mesh
+
+    mesh = make_mesh(FOUR_STEP_DEVICES, devices=jax.devices("cpu"))
+    sntt = ShardedNTT(mesh)
+    record = {"devices": FOUR_STEP_DEVICES,
+              "input": "tools/make_torch_fixtures.py:fused_input(seed, log_n)",
+              "made_by": "lambdaworks_cairo_prover_tpu parallel/four_step.py:"
+              "ShardedNTT.transform (no 1/n scaling) on CPU", "cases": []}
+    for (log_n, direction), seed in FOUR_STEP_SEEDS.items():
+        x = fused_input(seed, log_n)
+        out = sntt.transform(sntt.shard(jnp.asarray(x)[:, None, :]),
+                             inverse=direction == "inverse")
+        out = np.asarray(out, dtype=np.uint32).reshape(16, 1 << log_n)
+        record["cases"].append({
+            "log_n": log_n, "direction": direction, "seed": seed,
+            "plan": list(sntt.plan(1 << log_n)),
+            "input_sha256": hashlib.sha256(x.tobytes()).hexdigest(),
+            "output_sha256": hashlib.sha256(out.tobytes()).hexdigest()})
     queue.put(record)
 
 
@@ -697,7 +740,7 @@ def _write_cairo_fixtures(budget: float, fibs: list[int]) -> None:
 
 
 PARTS = ("small", "bench", "fused", "butterfly2", "cairo", "examples",
-         "programs", "casm", "hinted", "rc", "toy", "fri_chain")
+         "programs", "casm", "hinted", "rc", "toy", "fri_chain", "four_step")
 
 
 def _write_bench_digest(budget: float, logs: list[int]) -> None:
@@ -781,6 +824,9 @@ def main() -> None:
             print(f"wrote {TOY_NAME}: {len(data)} bytes", flush=True)
     if "fri_chain" in parts:
         _write_json(FRI_CHAIN_NAME, _in_child(_fri_chain_worker, (),
+                                              args.budget))
+    if "four_step" in parts:
+        _write_json(FOUR_STEP_NAME, _in_child(_four_step_worker, (),
                                               args.budget))
 
 
