@@ -35,8 +35,15 @@ Phases (any failure exits non-zero):
      on-device FRI chain runs under torch.cuda.set_sync_debug_mode("error")
      (no host sync before its one readback), and a warm prove through the
      per-layer route (a DefaultTranscript subclass), byte-equal to the
-     others; round4_fri_commit of both routes;
-  9. programs with builtins and hints (``[cairo-hints]``): the proof files
+     others; round4_fri_commit of both routes; its peak memory must stay
+     below the unpacked layout's 30.85 GiB;
+  9. the memory layout at scale (``[memory]``): Cairo
+     fibonacci_program(280000), 2^21 rows x 52 columns (an LDE of 2^23
+     points) with the bench options, one cold prove with donate_trace=True
+     and LCP_DEBUG_MEM=1 (the per-phase memory lines), verified, every
+     kernel launched, its peak printed; then H3/H4 against their plain
+     versions on one 2^23-point column, every pass of ntt_passes(23);
+ 10. programs with builtins and hints (``[cairo-hints]``): the proof files
      of the nine programs of tests/fixtures/torch_port/cairo_programs.json
      (output, bitwise, pedersen, ecdsa, keccak, poseidon, lt_comparison,
      signed_div_rem, compare_lesser_array(10)) and of the synthetic CASM
@@ -47,16 +54,16 @@ Phases (any failure exits non-zero):
      the python VM with hints, alloc and the range-check builtin (2^19 rows
      x 61 columns, bench options), cold and warm, verified; every kernel
      must be launched; both FRI commit routes as in phase 8;
- 10. bench.py's rc workload (``BASELINE`` config 3): rc_program with the
+ 11. bench.py's rc workload (``BASELINE`` config 3): rc_program with the
      value count that bench.py's calibration loop (copied into
      tools/make_torch_fixtures.py) finds for 2^16 rows, bench options, at
      the JAX package's sha256
      (tests/fixtures/torch_port/cairo_rc_bench_digest.json);
- 11. the toy field: a child process with LCP_FIELD=f257 proves
+ 12. the toy field: a child process with LCP_FIELD=f257 proves
      simple_fibonacci at 8 rows on the card, byte-equal to the JAX
      package's GF(257) proof, verifies it, and launches none of H1-H4;
- 12. the command line once on the card (prove_and_verify, a child process);
- 13. the multi-device prover (``[parallel]``): Cairo fib(70000) with the
+ 13. the command line once on the card (prove_and_verify, a child process);
+ 14. the multi-device prover (``[parallel]``): Cairo fib(70000) with the
      bench options on a one-rank NCCL mesh (``prove(mesh=...)``,
      shard_axis "domain"), cold and warm, at the single-device sha256,
      verified, every kernel launched; 4 gloo ranks sharing the card (child
@@ -68,14 +75,14 @@ Phases (any failure exits non-zero):
      (16, 52, 512, 1024).
 
 The line before the last is a JSON object with, for each kernel, its launch
-count in phase 9's cold prove (and under ``launches_cairo_fib`` in phase 8 and
-``launches_simple_fibonacci`` in phase 5), its largest disagreement with the plain
+count in phase 10's cold prove (and under ``launches_cairo_fib`` in phase 8,
+``launches_memory`` in phase 9 and ``launches_simple_fibonacci`` in phase 5), its largest disagreement with the plain
 version, its time against the plain version's and the least time the card
 could take, at the Cairo run's widest shape (and under ``one_column`` at
 the one-column shape of phase 5), H3 at its widest pass, H4 at the last
 pass of the 2^21 transform (and under ``ten_stages`` at 10 stages in
 place), the whole 2^21 transform under ``whole_ntt``, H3/H4 at the
-four-step's shapes under ``four_step`` and the launches of phase 13's
+four-step's shapes under ``four_step`` and the launches of phase 14's
 one-rank prove under ``launches_parallel``; the last line is
 ``{"ok": true, "device": {...}}``.  This script imports no JAX.
 """
@@ -118,6 +125,11 @@ TOY_ROWS = 8            # simple_fibonacci over GF(257): an LDE of 32 points
 CAIRO_FIB_SHA256 = ("ac3aa66d80cb107e6ad4457dd9db69d0e11dc6332e4fdb0c9aaef95e"
                     "2100dc04")
 CAIRO_COLS = 52         # 34 main + 18 auxiliary columns of that run
+# the peak of [cairo-full]'s cold prove before the packed resident layout
+# (30.85 GiB, NVIDIA H100 80GB HBM3 at 700 W): the layout must stay below it
+CAIRO_FIB_UNPACKED_PEAK = 33_126_153_216
+MEMORY_FIB_N = 280000   # [memory]: about 1.68 M steps, 2^21 rows x 52 columns
+MEMORY_LOG = 21         # its rows; its LDE has 2^23 points
 PARALLEL_RANKS = 4      # gloo ranks that share the one card in [parallel]
 
 # The card's peaks (NVIDIA's H100 SXM data sheet): 3.35 TB/s of HBM and 67
@@ -293,13 +305,13 @@ class NttChecks:
     (16, cols, n) tensors that the transforms of both real-size runs hand
     them: every pass of ``ntt_passes`` for that n."""
 
-    def __init__(self, torch, dev):
+    def __init__(self, torch, dev, max_log: int = max(NTT_LOGS)):
         from lambdaworks_cairo_prover_tpu_torch.ntt import cuda_ntt as cn
 
         self.torch, self.cn = torch, cn
         # a smaller transform reads a prefix of the tables
-        self.tw = cn.twiddle_table(max(NTT_LOGS), False, dev)
-        self.twp = cn.packed_twiddle_table(max(NTT_LOGS), False, dev)
+        self.tw = cn.twiddle_table(max_log, False, dev)
+        self.twp = cn.packed_twiddle_table(max_log, False, dev)
         self.plain_ms = {}  # (kernel, first stage, stages, natural, shape) -> ms
 
     def cases(self, log_n: int) -> list:
@@ -800,7 +812,7 @@ def phase_cairo_aux(torch, dev) -> None:
     host = air.build_auxiliary_trace_host(trace, challenges)
     t_host = time.perf_counter() - t0
     require(aux.data.device.type == "cuda", "the RAP build left the card")
-    err = max_abs_err(torch, aux.data, host.data)
+    err = max_abs_err(torch, aux.data, host.unpacked())
     log(f"[cairo-aux] {trace.n_rows} rows x {aux.n_cols} auxiliary columns: "
         f"device build {t_dev:.3f} s, host oracle {t_host:.3f} s, "
         f"max_abs_err {err}")
@@ -894,11 +906,87 @@ def phase_cairo_full(torch, dev) -> dict:
     require(len(cold["bytes"]) == CAIRO_FIB_PROOF_BYTES,
             f"proof size {len(cold['bytes'])} != {CAIRO_FIB_PROOF_BYTES}")
     log(f"[cairo-full] torch.cuda.max_memory_allocated {peak} bytes "
-        f"({peak / 2**30:.2f} GiB)")
+        f"({peak / 2**30:.2f} GiB; {CAIRO_FIB_UNPACKED_PEAK} bytes before "
+        f"the packed resident layout)")
+    require(peak < CAIRO_FIB_UNPACKED_PEAK,
+            "the cold prove's peak is not below the unpacked layout's")
     reset_counts(torch)
     fri_routes(torch, dev, "fri-routes cairo-full", cold, warm)
     read_counts("fri-routes cairo-full")
     return launches
+
+
+def phase_memory(torch, dev) -> dict:
+    """The port's device-memory layout at a size the unpacked one could not
+    hold on one card: Cairo fibonacci_program(MEMORY_FIB_N), 2^21 rows x 52
+    columns, bench options, one cold prove with donate_trace=True under
+    LCP_DEBUG_MEM=1 (its per-phase memory lines), verified; every kernel
+    launched.  The kernel tables that earlier phases cached are dropped
+    first, and the peak is printed beside what was allocated before.  Then
+    H3/H4 against their plain versions on one 2^23-point column, every pass
+    of ntt_passes(23).  Returns the launches and the NTT errors."""
+    import gc
+
+    from lambdaworks_cairo_prover_tpu_torch.cairo import programs
+    from lambdaworks_cairo_prover_tpu_torch.cairo.air import (
+        generate_cairo_proof, verify_cairo_proof)
+    from lambdaworks_cairo_prover_tpu_torch.cairo.runner import (
+        generate_prover_args)
+    from lambdaworks_cairo_prover_tpu_torch.proof.options import ProofOptions
+    from lambdaworks_cairo_prover_tpu_torch.proof.serde import serialize_proof
+    from lambdaworks_cairo_prover_tpu_torch.prover import kernels as pk
+
+    pk._KERNEL_CACHE.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    options = ProofOptions(**BENCH)
+    reset_counts(torch)
+    t0 = time.perf_counter()
+    trace, pub = generate_prover_args(
+        programs.fibonacci_program(MEMORY_FIB_N), device=dev)
+    t_args = time.perf_counter() - t0
+    rows, cols, stages = trace.n_rows, trace.n_cols, trace._timings
+    require(rows == 1 << MEMORY_LOG,
+            f"fibonacci_program({MEMORY_FIB_N}) pads to {rows} rows, not "
+            f"2^{MEMORY_LOG}")
+    os.environ["LCP_DEBUG_MEM"] = "1"
+    try:
+        t0 = time.perf_counter()
+        proof = generate_cairo_proof(trace, pub, options, device=dev,
+                                     donate_trace=True)
+        t_prove = time.perf_counter() - t0
+    finally:
+        del os.environ["LCP_DEBUG_MEM"]
+    launches = read_counts("memory")
+    peak = torch.cuda.max_memory_allocated()
+    reserved = torch.cuda.max_memory_reserved()
+    require(trace.data is None, "donate_trace left the caller's trace")
+    t0 = time.perf_counter()
+    require(verify_cairo_proof(proof, pub, options),
+            "the port's verifier rejected the 2^21-row Cairo proof")
+    t_verify = time.perf_counter() - t0
+    n_bytes = len(serialize_proof(proof))
+    n_cols = len(proof.trace_ood_frame_evaluations[0])
+    require(n_cols == CAIRO_COLS, f"{n_cols} columns, not {CAIRO_COLS}")
+    rounds = ", ".join(f"{k} {v:.3f}" for k, v in proof._timings.items())
+    log(f"[memory] fibonacci_program({MEMORY_FIB_N}): {rows} rows x {n_cols} "
+        f"columns ({cols} main), LDE 2^{MEMORY_LOG + 2} points, blowup 4, 80 "
+        f"queries, coset 3, grinding 20, donate_trace=True")
+    log(f"[memory] {stages['vm_name']} VM {stages['vm']:.3f} s, trace build "
+        f"{stages['trace_build']:.3f} s (host), ingest {stages['ingest']:.3f} "
+        f"s; generate_prover_args {t_args:.3f} s")
+    log(f"[memory] cold prove {t_prove:.3f} s ({rounds}); verify "
+        f"{t_verify:.3f} s, accepted; proof size {n_bytes} bytes")
+    log(f"[memory] torch.cuda.max_memory_allocated {peak} bytes "
+        f"({peak / 2**30:.2f} GiB; {base} bytes allocated before the phase), "
+        f"max_memory_reserved {reserved} bytes ({reserved / 2**30:.2f} GiB)")
+    del proof
+    checks = NttChecks(torch, dev, MEMORY_LOG + 2)
+    column = random_columns(torch, 1, 1 << (MEMORY_LOG + 2), dev)
+    errs = checks.compare(column)
+    del checks, column
+    return {"launches": launches, "ntt_errs": errs, "peak": peak}
 
 
 def _hints_fixtures(dev) -> None:
@@ -1416,6 +1504,7 @@ def main() -> int:
         phase(phase_cairo_fixture, dev)
         phase(phase_cairo_aux, torch, dev)
         launches_cairo_fib = phase(phase_cairo_full, torch, dev)
+        memory = phase(phase_memory, torch, dev)
         launches = phase(phase_cairo_hints, torch, dev)
         phase(phase_rc, dev)
         phase(phase_toy_field)
@@ -1436,7 +1525,10 @@ def main() -> int:
          "launches_cairo_fib": launches_cairo_fib[name],
          "launches_simple_fibonacci": launches_fib[name],
          "launches_parallel": par["launches"][name],
-         "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+         "launches_memory": memory["launches"][name],
+         "max_abs_err": max(rec["max_abs_err"],
+                            memory["ntt_errs"].get(name, 0)),
+         "ms": rec["ms"],
          "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
          "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
          **{k: v for k, v in rec.items() if k not in (

@@ -1,9 +1,16 @@
 """Evaluation frames.
 
-DeviceFrame: the whole-domain sliding window — row k is the LDE trace rolled
-by ``k * blowup`` positions (wraparound), so `compute_transition` evaluates
-every transition constraint at EVERY domain point at once (replacing the
-reference's per-point `Frame::read_from_trace`, src/starks/frame.rs:40-59).
+HaloFrame: the transition window over one run of LDE points (a chunk of
+the domain, or a rank's block of it) and the halo after it — row k is the
+run shifted by ``k * blowup`` points, read from the run and, past its end,
+from the halo; so `compute_transition` evaluates every transition
+constraint at every point of the run at once (replacing the reference's
+per-point `Frame::read_from_trace`, src/starks/frame.rs:40-59).  The prover
+walks the domain in such runs: the halo of the last one is the first
+points of the domain (the wraparound).
+
+DeviceFrame: the whole-domain window, a HaloFrame whose halo is the
+domain's first points.
 
 HostFrame: a single concrete frame of python ints (the out-of-domain frame
 used by the verifier)."""
@@ -12,42 +19,72 @@ from __future__ import annotations
 
 import torch
 
+from ..field import device as fd
+from ..field.params import N_LIMBS
 from .values import FV, HostCtx, TorchCtx
 
 
-class _DeviceRow:
-    """Row ``k`` of the window: column ``c`` is the LDE column rolled by
-    ``shift`` positions.  A column is rolled when a constraint first reads
-    it and kept, so only the columns that are read at this offset are
-    copied (at 52 columns of 2^21 points a whole rolled copy is 7 GB)."""
+class _WindowRow:
+    """Row at ``shift`` of a window: column c is the (16, length) view of
+    the window's points [shift, shift + length)."""
 
-    def __init__(self, ctx: TorchCtx, data: torch.Tensor, shift: int):
+    def __init__(self, ctx: TorchCtx, data: torch.Tensor, shift: int,
+                 length: int):
         self._ctx = ctx
-        self._data = data  # (16, n_cols, n_points)
+        self._data = data  # (16, n_cols, length + halo)
         self._shift = shift
-        self._cols: dict[int, torch.Tensor] = {}
+        self._length = length
 
     def __getitem__(self, col: int) -> FV:
-        if self._shift == 0:
-            return self._ctx.wrap(self._data[:, col, :])
-        if col not in self._cols:
-            self._cols[col] = self._shifted(col)
-        return self._ctx.wrap(self._cols[col])
-
-    def _shifted(self, col: int) -> torch.Tensor:
-        return torch.roll(self._data[:, col, :], -self._shift, dims=1)
+        return self._ctx.wrap(
+            self._data[:, col, self._shift:self._shift + self._length])
 
 
-class DeviceFrame:
-    def __init__(self, lde_data: torch.Tensor, offsets: list[int], blowup: int):
-        # lde_data: (16, n_cols, n_points)
-        self.ctx = TorchCtx(batch_shape=(lde_data.shape[2],),
-                            device=lde_data.device)
-        self._rows = {k: _DeviceRow(self.ctx, lde_data, k * blowup)
+def _window(block: torch.Tensor, halo: torch.Tensor) -> torch.Tensor:
+    """block ‖ halo along the points as one (16, cols, L + h) limb tensor,
+    unpacked from either layout into one buffer."""
+    cols, length, h = block.shape[1], block.shape[2], halo.shape[2]
+    out = torch.empty((N_LIMBS, cols, length + h), dtype=torch.int32,
+                      device=block.device)
+    for part, dst in ((block, out[:, :, :length]), (halo, out[:, :, length:])):
+        if fd.is_packed(part):
+            fd.unpack(part, out=dst)
+        else:
+            dst.copy_(part)
+    return out
+
+
+class HaloFrame:
+    """The transition frame over ``block`` (16 or 8, cols, L) and the
+    ``halo`` (the same layout, at least max(offsets) * blowup points) that
+    follows it: one unpacked copy of block ‖ halo, each row a view of it."""
+
+    def __init__(self, block: torch.Tensor, halo: torch.Tensor,
+                 offsets: list[int], blowup: int):
+        length = block.shape[2]
+        self.ctx = TorchCtx(batch_shape=(length,), device=block.device)
+        # (16, cols, L + h) limbs: row 0 of every column is data[:, c, :L]
+        self.data = data = _window(block, halo[:, :, :max(offsets) * blowup])
+        self._rows = {k: _WindowRow(self.ctx, data, k * blowup, length)
                       for k in set(offsets)}
 
-    def get_row(self, k: int) -> _DeviceRow:
+    def get_row(self, k: int) -> _WindowRow:
         return self._rows[k]
+
+
+class DeviceFrame(HaloFrame):
+    """The frame over the whole domain: the halo wraps to its first points."""
+
+    def __init__(self, lde_data: torch.Tensor, offsets: list[int], blowup: int):
+        super().__init__(lde_data, wrap_halo(lde_data, max(offsets) * blowup),
+                         offsets, blowup)
+
+
+def wrap_halo(data: torch.Tensor, h: int) -> torch.Tensor:
+    """The h points that follow the last point of ``data`` (..., n) on a
+    cycle of n points: its first h points, taken round again where h > n."""
+    idx = torch.arange(h, device=data.device) % data.shape[-1]
+    return data.index_select(-1, idx)
 
 
 class _HostRow:

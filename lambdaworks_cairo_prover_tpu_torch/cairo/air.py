@@ -4,8 +4,7 @@ transition constraints (reference src/cairo/air.rs).
 Constraints are written once against the FV wrapper and evaluated either over
 the whole LDE domain on device or on the OOD frame on host (see air/values.py).
 
-The counterpart of the JAX package's cairo/air.py without its mesh and
-trace-donation options.
+The counterpart of the JAX package's cairo/air.py.
 """
 
 from __future__ import annotations
@@ -312,7 +311,15 @@ class CairoAIR(AIR):
         """The RAP trace, built on the main trace's device: the sorts are
         stable library sorts on integer keys, the cumulative products
         blocked `prefix_product` scans over Montgomery multiplies (the H1
-        and H2 kernels on a CUDA device)."""
+        and H2 kernels on a CUDA device).
+
+        The 11 columns it reads come one at a time through
+        ``main_trace.col`` (unpacked one by one from the packed trace).
+        Where the prover has set ``main_trace._release_after_read``
+        (``prove(donate_trace=True)``), the trace is released right after
+        that read, so that the sorts and scans reuse its memory."""
+        from ..prover.prove import _mem
+
         n = main_trace.n_rows
         dev = main_trace.data.device
         pub = self.pub_inputs_
@@ -325,6 +332,8 @@ class CairoAIR(AIR):
             (FRAME_PC, FRAME_DST_ADDR, FRAME_OP0_ADDR, FRAME_OP1_ADDR))
         val_cols = interleave((FRAME_INST, FRAME_DST, FRAME_OP0, FRAME_OP1))
         off_cols = interleave((OFF_DST, OFF_OP0, OFF_OP1))
+        if getattr(main_trace, "_release_after_read", False):
+            main_trace.data = None
 
         # public-memory injection into the last pub_len slots
         pub_addrs = self._get_pub_memory_addrs()
@@ -341,7 +350,11 @@ class CairoAIR(AIR):
 
         mem_part = _aux_mem_kernel(addr_cols, val_cols, a_aux, v_aux, z_arr,
                                    alpha_arr, n)
+        del addr_cols, val_cols, a_aux, v_aux
+        _mem("aux: mem kernel done", dev)
         off_sorted, rc_perm = _aux_rc_kernel(off_cols, zr_arr, n)
+        del off_cols
+        _mem("aux: rc kernel done", dev)
         return TraceTable(torch.cat([off_sorted, mem_part, rc_perm], dim=1))
 
     def build_auxiliary_trace_host(self, main_trace: TraceTable, rc) -> TraceTable:
@@ -660,15 +673,18 @@ class CairoAIR(AIR):
 
 def generate_cairo_proof(trace: TraceTable, pub_inputs: PublicInputs,
                          proof_options: ProofOptions, *, device="cuda",
-                         mesh=None, shard_axis: str = "domain"):
+                         mesh=None, shard_axis: str = "domain",
+                         donate_trace: bool = False):
     """Prove on ``device`` (the first CUDA card unless the caller names
     another device or the CPU).  Raises `ProvingError` where a CUDA device
     is asked for and there is none.  ``mesh`` and ``shard_axis``: the
-    multi-device prover of ``prover.prove.prove``."""
+    multi-device prover of ``prover.prove.prove``; ``donate_trace``: the
+    caller gives ``trace`` up (its ``data`` is None afterwards) and the
+    prover frees it once the auxiliary trace is built."""
     from ..prover.prove import prove
 
     return prove(trace, pub_inputs, proof_options, CairoAIR, device=device,
-                 mesh=mesh, shard_axis=shard_axis)
+                 mesh=mesh, shard_axis=shard_axis, donate_trace=donate_trace)
 
 
 def verify_cairo_proof(proof, pub_inputs: PublicInputs,

@@ -88,22 +88,41 @@ def ones(shape=(), *, device) -> torch.Tensor:
 
 # ---------------------------------------------------------------------------
 # Packed layout: two 16-bit limbs a 32-bit word (the JAX package's at-rest
-# layout, field/device.py:pack); int64 words here, as torch has no uint32
-# arithmetic on the CPU
+# layout, field/device.py:pack), half the bytes of the limb layout.  Words
+# are int32 carrying the uint32 bit pattern (a word whose top bit is set is
+# negative), as the NTT kernels' twiddle table reads them: CPU torch has no
+# uint32 arithmetic, and int32 shifts and masks act on the bits as on uint32
+# where the mask follows an arithmetic shift.
 # ---------------------------------------------------------------------------
 
 
 def pack(a: torch.Tensor) -> torch.Tensor:
-    """(16, ...) 16-bit limbs -> (8, ...) int64 words, limb 2k | limb 2k+1 << 16."""
-    a = a.to(torch.int64)
-    return a[0::2] | (a[1::2] << 16)
+    """(16, ...) 16-bit limbs -> (8, ...) int32 words, limb 2k | limb 2k+1 << 16."""
+    # sign-extend the high limb to int32 first, so that the shift by 16
+    # cannot leave the int32 range
+    words = a[1::2].to(_I32) ^ 0x8000
+    return words.sub_(0x8000).mul_(0x10000).bitwise_or_(a[0::2].to(_I32))
 
 
-def unpack(p: torch.Tensor) -> torch.Tensor:
-    """(8, ...) packed words -> (16, ...) int32 16-bit limbs."""
-    p = p.to(torch.int64)
-    limbs = torch.stack([p & LIMB_MASK, (p >> 16) & LIMB_MASK], dim=1)
-    return limbs.reshape((N_LIMBS,) + tuple(p.shape[1:])).to(_I32)
+def unpack(p: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
+    """(8, ...) packed words (int32 bit patterns, or int64 words < 2^32) ->
+    (16, ...) int32 16-bit limbs, written into ``out`` where given."""
+    if out is None:
+        out = torch.empty((N_LIMBS,) + tuple(p.shape[1:]), dtype=_I32,
+                          device=p.device)
+    out[0::2] = p & LIMB_MASK
+    out[1::2] = (p >> 16) & LIMB_MASK  # mask after the arithmetic shift
+    return out
+
+
+def is_packed(a: torch.Tensor) -> bool:
+    """Whether ``a`` holds packed words (8, ...) rather than limbs (16, ...)."""
+    return a.shape[0] == N_LIMBS // 2
+
+
+def unpacked(a: torch.Tensor) -> torch.Tensor:
+    """``a`` as (16, ...) limbs, whichever layout it is in."""
+    return unpack(a) if is_packed(a) else a
 
 
 # ---------------------------------------------------------------------------

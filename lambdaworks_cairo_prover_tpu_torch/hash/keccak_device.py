@@ -40,6 +40,10 @@ _ROT = [
 _RATE_LANES = 17  # 136 bytes
 _MAX_POS = (1 << 63) - 1
 _LEAF_CHUNK_FELTS = 1 << 23  # felts hashed per pass of hash_felt_rows
+# messages absorbed per pass: the state and the temporaries of a round take
+# some 2 KB a message, 16 GiB for the 2^23 single-felt leaves of a 2^21-row
+# trace's first FRI layer in one pass
+_ABSORB_CHUNK = 1 << 21
 
 
 def _signed(v: int) -> int:
@@ -93,8 +97,14 @@ def _keccak_f(state: torch.Tensor) -> torch.Tensor:
 
 
 def _absorb(lanes: torch.Tensor) -> torch.Tensor:
-    """Pre-padded messages (n, L) int64 lanes, L a multiple of 17 -> (n, 4)."""
+    """Pre-padded messages (n, L) int64 lanes, L a multiple of 17 -> (n, 4),
+    _ABSORB_CHUNK messages at a time."""
     n, total = lanes.shape
+    if n > _ABSORB_CHUNK:
+        out = torch.empty((n, 4), dtype=torch.int64, device=lanes.device)
+        for r0 in range(0, n, _ABSORB_CHUNK):
+            out[r0:r0 + _ABSORB_CHUNK] = _absorb(lanes[r0:r0 + _ABSORB_CHUNK])
+        return out
     state = torch.zeros((25, n), dtype=torch.int64, device=lanes.device)
     for blk in range(total // _RATE_LANES):
         block = lanes[:, blk * _RATE_LANES:(blk + 1) * _RATE_LANES]

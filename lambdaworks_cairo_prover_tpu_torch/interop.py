@@ -32,15 +32,13 @@ def limbs_to_numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def trace_from_numpy(data: np.ndarray, device) -> TraceTable:
-    """A port TraceTable from a JAX TraceTable's ``data``: (16, cols, rows)
-    limbs, or the JAX package's packed (8, cols, rows) layout (limb pairs
-    in one u32)."""
+    """A port TraceTable from a JAX TraceTable's ``data``, in the same
+    layout: (16, cols, rows) limbs, or the packed (8, cols, rows) words
+    (limb pairs in one u32), whose bits the port keeps as int32."""
     data = np.asarray(data, dtype=np.uint32)
-    if data.shape[0] == N_LIMBS // 2:
-        unpacked = np.empty((N_LIMBS,) + data.shape[1:], np.uint32)
-        unpacked[0::2] = data & 0xFFFF
-        unpacked[1::2] = data >> 16
-        data = unpacked
+    if data.ndim == 3 and data.shape[0] == N_LIMBS // 2:
+        return TraceTable(torch.from_numpy(
+            data.view(np.int32).copy()).to(device))
     return TraceTable(limbs_from_numpy(data, device))
 
 

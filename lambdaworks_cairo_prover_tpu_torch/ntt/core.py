@@ -32,6 +32,11 @@ def offset_powers(offset: int, n: int, device) -> torch.Tensor:
     return _powers_cache[key]
 
 
+def forget_powers(offset: int, n: int, device) -> None:
+    """Drop the cached :func:`offset_powers` table, if there is one."""
+    _powers_cache.pop((offset % P, n, torch.device(device)), None)
+
+
 def transform(x: torch.Tensor, inverse: bool) -> torch.Tensor:
     """The DFT along the last axis, natural order both ends, not scaled by
     1/n: the local transforms of the four-step NTT (parallel/four_step.py)."""

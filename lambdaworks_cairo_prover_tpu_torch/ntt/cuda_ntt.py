@@ -55,33 +55,37 @@ def twiddle_table(log_n: int, inverse: bool, device) -> torch.Tensor:
     n = 1 << log_n
     tab = _twiddle_cache.get(key)
     if tab is None or tab.shape[1] < n:
-        parts = [fd.ones((1,), device=device)]
-        for s in range(log_n):
-            w = get_primitive_root_of_unity(s + 1)
-            if inverse:
-                w = pow(w, P - 2, P)
-            parts.append(fd.powers(w, 1 << s, device=device))
-        tab = torch.cat(parts, dim=1).contiguous()
+        tab = _build_twiddles(log_n, inverse, device)
         _twiddle_cache[key] = tab
     return tab[:, :n]
+
+
+def _build_twiddles(log_n: int, inverse: bool, device) -> torch.Tensor:
+    parts = [fd.ones((1,), device=device)]
+    for s in range(log_n):
+        w = get_primitive_root_of_unity(s + 1)
+        if inverse:
+            w = pow(w, P - 2, P)
+        parts.append(fd.powers(w, 1 << s, device=device))
+    return torch.cat(parts, dim=1).contiguous()
 
 
 def pack_twiddles(tw: torch.Tensor) -> torch.Tensor:
     """A (16, n) limb table as the (n, 8) int32 table the kernels read: word
     k of an entry is limb 2k | limb 2k+1 << 16."""
-    t = tw.to(torch.int64)
-    words = t[0::2] | (t[1::2] << 16)
-    words = torch.where(words >= 1 << 31, words - (1 << 32), words)
-    return words.to(torch.int32).t().contiguous()
+    return fd.pack(tw).t().contiguous()
 
 
 def packed_twiddle_table(log_n: int, inverse: bool, device) -> torch.Tensor:
-    """(2^log_n, 8) packed view of :func:`twiddle_table`, cached."""
+    """(2^log_n, 8) packed view of :func:`twiddle_table`, cached.  The limb
+    table it is packed from is not kept: the kernels read only this one,
+    and the limb table is twice its bytes (512 MiB a direction at 2^23
+    points)."""
     key = (inverse, torch.device(device))
     n = 1 << log_n
     tab = _packed_cache.get(key)
     if tab is None or tab.shape[0] < n:
-        tab = pack_twiddles(twiddle_table(log_n, inverse, device))
+        tab = pack_twiddles(_build_twiddles(log_n, inverse, device))
         _packed_cache[key] = tab
     return tab[:n]
 

@@ -9,9 +9,10 @@ a late FRI layer, is replicated).  Under that layout:
   * NTT, iNTT, LDE      -> four-step transforms, 3 all-to-alls each
                            (parallel/four_step.py)
   * domain tables       -> each rank builds its block
-  * constraints         -> rank-local; the frame's row shifts (by k·blowup)
-                           read a halo, the first points of the next rank,
-                           from one all-gather
+  * constraints         -> rank-local, over chunks of the rank's block; the
+                           frame's row shifts (by k·blowup) read a halo,
+                           past the block's end the first points of the
+                           next rank, from one all-gather
   * Merkle trees        -> each rank builds its subtree up to one root; the
                            D roots are all-gathered and the top log2(D)
                            levels are computed on every rank
@@ -25,6 +26,12 @@ a late FRI layer, is replicated).  Under that layout:
 interpolates and extends its block of trace columns, the blocks are
 all-gathered, and everything else runs as on one device on every rank.
 
+Both keep the resident polynomials and LDE packed, as on one device
+(``ProverKernels.alloc_buffers``: here a rank's blocks of them), so a rank
+gets both halvings, the packing and the 1/D share of the domain.  The
+domain-sharded tables stay unpacked (``packed_tables``): a rank's share is
+already N/D points.
+
 Challenges enter as the same limb tensors as on one device, so the
 transcript, and with it the proof bytes, are those of the single-device
 prover for any mesh size.
@@ -34,7 +41,6 @@ from __future__ import annotations
 
 import torch
 
-from ..air.frame import DeviceFrame, _DeviceRow
 from ..field import device as fd
 from ..field.params import N_LIMBS, P, R2
 from ..hash import keccak_device as kd
@@ -100,32 +106,11 @@ class ShardedMerkleTree(MerkleTree):
         return torch.cat(parts, dim=0)
 
 
-class _HaloRow(_DeviceRow):
-    """Row at shift s of a block: column c is the block's points from s on,
-    then the first s points of the halo (the points after the block)."""
-
-    def __init__(self, ctx, data, halo, shift):
-        super().__init__(ctx, data, shift)
-        self._halo = halo
-
-    def _shifted(self, col: int) -> torch.Tensor:
-        s = self._shift
-        return torch.cat([self._data[:, col, s:], self._halo[:, col, :s]],
-                         dim=1)
-
-
-class _HaloFrame(DeviceFrame):
-    """The transition frame over one block of the LDE and its halo."""
-
-    def __init__(self, block, halo, offsets, blowup):
-        super().__init__(block, offsets, blowup)
-        self._rows = {k: _HaloRow(self.ctx, block, halo, k * blowup)
-                      for k in set(offsets)}
-
-
 class ShardedProverKernels(ProverKernels):
     """The interface of ProverKernels with the LDE domain block-sharded
     over ``mesh``: every method takes and returns this rank's parts."""
+
+    packed_tables = False
 
     def __init__(self, air, domain, mesh, device, axis: str | None = None):
         # the mesh and the transforms must exist before ProverKernels
@@ -169,8 +154,7 @@ class ShardedProverKernels(ProverKernels):
         return local[:-1] + tree_levels(sh.gather_rows(local[-1], self.mesh))
 
     def _commit_rows(self, lde: torch.Tensor, n_points: int) -> list:
-        rows = fd.from_mont(lde).permute(0, 2, 1)  # (16, points, cols)
-        return self._commit(kd.hash_felt_rows(rows, rows.shape[2]), n_points)
+        return self._commit(self._row_leaves(lde), n_points)
 
     def _commit_single(self, evals: torch.Tensor, n_points: int) -> list:
         return self._commit(kd.hash_felt_leaves(fd.from_mont(evals)),
@@ -187,7 +171,7 @@ class ShardedProverKernels(ProverKernels):
             local, dtype=torch.int64, device=src.device))
         got = _from_owners(torch.movedim(picks, -1, 0).contiguous(), owners,
                            self.mesh)
-        return torch.movedim(got, 0, -1)
+        return fd.unpacked(torch.movedim(got, 0, -1))
 
     def coeffs_to_ints(self, coeffs, length):
         if sh.is_block(length, self.mesh):
@@ -196,32 +180,35 @@ class ShardedProverKernels(ProverKernels):
 
     # -- round 1 ------------------------------------------------------------
 
-    def interpolate_commit(self, trace_data: torch.Tensor):
+    def alloc_buffers(self, total_cols: int):
+        """This rank's blocks of the packed polynomial and LDE buffers."""
+        n, N = self.air.trace_length(), self.domain.lde_size
+        return tuple(torch.empty((N_LIMBS // 2, total_cols, m // self.d),
+                                 dtype=torch.int32, device=self.device)
+                     for m in (n, N))
+
+    def _extend(self, data):
+        """A chunk of columns through the four-step transforms: this rank's
+        blocks of their polynomials and LDE."""
         domain = self.domain
         n, N = self.air.trace_length(), domain.lde_size
-        polys = self.sntt.interpolate(self.sntt.shard(trace_data), n)
+        polys = self.sntt.interpolate(self.sntt.shard(data), n)
         lde = self.sntt.evaluate_offset(polys, n, N, domain.coset_offset)
-        return polys, lde, self._commit_rows(lde, N)
+        return polys, lde
 
     # -- round 2 ------------------------------------------------------------
 
-    def _frame(self, lde_evals: torch.Tensor) -> DeviceFrame:
-        """The frame over this rank's block: a shift by k·blowup reads the
-        points that follow the block, up to max(k)·blowup of them, which
-        one all-gather of every rank's first points brings (from the next
-        ranks in turn, with wraparound)."""
-        offsets = self.air.context.transition_offsets
-        blowup = self.domain.blowup_factor
-        h = max(offsets) * blowup
-        halo = lde_evals[..., :0]
-        if h:
-            m = min(h, lde_evals.shape[2])
-            firsts = sh.gather_stack(lde_evals[..., :m].contiguous(),
-                                     self.mesh)  # (D, 16, cols, m)
-            halo = torch.cat([firsts[(self.rank + j) % self.d]
-                              for j in range(1, -(-h // m) + 1)],
-                             dim=-1)[..., :h]
-        return _HaloFrame(lde_evals, halo, offsets, blowup)
+    def _halo(self, lde_evals: torch.Tensor, h: int) -> torch.Tensor:
+        """The h points that follow this rank's block: the first points of
+        the next ranks in turn (with wraparound), from one all-gather of
+        every rank's first points."""
+        m = min(h, lde_evals.shape[2])
+        if not m:
+            return lde_evals[..., :0]
+        firsts = sh.gather_stack(lde_evals[..., :m].contiguous(),
+                                 self.mesh)  # (D, 8 | 16, cols, m)
+        return torch.cat([firsts[(self.rank + j) % self.d]
+                          for j in range(1, -(-h // m) + 1)], dim=-1)[..., :h]
 
     def _halves(self, x: torch.Tensor, n: int):
         """The even and odd points of a tensor of global length n.  Blocks
@@ -257,7 +244,7 @@ class ShardedProverKernels(ProverKernels):
         """The dot product over every rank's block: each rank's partial sum,
         all-gathered and added on every rank (canonical residues, so the
         order of the additions does not matter)."""
-        part = nttc.sum_reduce(fd.mul(coeffs, powers_table), axis=-1)
+        part = self._dot(coeffs, powers_table)
         parts = sh.gather_stack(part, self.mesh)  # (D, 16, ...)
         return fd.from_mont(nttc.sum_reduce(torch.movedim(parts, 0, 1),
                                             axis=1))
@@ -315,18 +302,16 @@ class ColumnShardedProverKernels(ProverKernels):
             mesh, domain.blowup_factor, domain.interpolation_domain_size,
             domain.coset_offset, self.axis)
 
-    def interpolate_commit(self, trace_data: torch.Tensor):
-        cols = trace_data.shape[1]
+    def _extend(self, data):
+        cols = data.shape[1]
         pad = -cols % self.mesh.size()
         if pad:
-            trace_data = torch.cat([trace_data, torch.zeros(
-                (N_LIMBS, pad, trace_data.shape[2]), dtype=trace_data.dtype,
-                device=trace_data.device)], dim=1)
-        polys, lde = self._lde(trace_data)
-        polys = sh.gather_columns(polys, self.mesh)[:, :cols].contiguous()
-        lde = sh.gather_columns(lde, self.mesh)[:, :cols].contiguous()
-        rows = fd.from_mont(lde).permute(0, 2, 1)  # (16, N, cols)
-        return polys, lde, tree_levels(kd.hash_felt_rows(rows, cols))
+            data = torch.cat([data, torch.zeros(
+                (N_LIMBS, pad, data.shape[2]), dtype=data.dtype,
+                device=data.device)], dim=1)
+        polys, lde = self._lde(data)
+        return (sh.gather_columns(polys, self.mesh)[:, :cols].contiguous(),
+                sh.gather_columns(lde, self.mesh)[:, :cols].contiguous())
 
 
 _SHARDED_CACHE: dict = {}

@@ -50,6 +50,15 @@ class Domain:
                 pow(self.coset_offset, exponent, P), device=device))
         return self._cache[key]
 
+    def forget(self, *, device) -> None:
+        """Drop the tables cached on ``device``, and the powers table that
+        ``lde_values`` is built from: a caller that keeps its own copy (the
+        prover's packed tables) lets the (16, N) originals go."""
+        device = torch.device(device)
+        for key in [k for k in self._cache if k[-1] == device]:
+            del self._cache[key]
+        nttc.forget_powers(self.lde_primitive_root, self.lde_size, device)
+
     # -- host scalars -------------------------------------------------------
 
     def trace_root_pow(self, step: int) -> int:

@@ -1,21 +1,31 @@
-"""Prover round computations over whole-domain tensors, cached per
-(AIR shape, trace length, device).
+"""Prover round computations, cached per (AIR shape, trace length,
+device): the counterpart of the JAX package's prover/kernels.py as plain
+eager methods, with its device-memory layout.
 
-The counterpart of the JAX package's prover/kernels.py as plain eager
-methods: every round works on the whole LDE domain at once, with no row
-chunks, packed buffers or jit caches.  Where a round would stack or expand
-every trace column at once (the constraint groups of round 2, the DEEP
-quotients of round 4: three temporaries of the LDE's size each, 7 GB at 52
-columns of 2^21 points), it goes through the columns ``_COL_CHUNK`` at a
-time and adds the partial sums, which gives the same values.  Domain tables (LDE
-coset values, degree-adjustment powers, zerofier cycle, exemption
-evaluations, boundary zerofier inverses) are built once on the device."""
+* The resident trace polynomials and LDE are packed (``fd.pack``: two
+  16-bit limbs a 32-bit word, half the bytes) in buffers that prove()
+  allocates once (:meth:`ProverKernels.alloc_buffers`) for the main and the
+  auxiliary columns; round 1 transforms the columns a chunk at a time and
+  writes each chunk into them in place, so no whole-domain piece is held
+  twice.
+* The domain tables (LDE coset values, degree-adjustment powers, zerofier
+  cycle, exemption evaluations, boundary zerofier inverses) are built once
+  on the device and kept packed where ``packed_tables``.
+* Every pass over the LDE walks it in chunks and unpacks only the chunk it
+  reads: the row leaves in chunks of rows, round 2's constraints and DEEP
+  in chunks of domain points (each chunk of round 2 with the frame's halo,
+  the points after it, round the domain at its end), the OOD dot products
+  in chunks of coefficients.  The chunk sizes set the transient memory and
+  the launch count, never the values.
+"""
 
 from __future__ import annotations
 
+import os
+
 import torch
 
-from ..air.frame import DeviceFrame
+from ..air.frame import HaloFrame, wrap_halo
 from ..field import device as fd
 from ..field.params import N_LIMBS, P, R2
 from ..hash import keccak_device as kd
@@ -24,7 +34,20 @@ from ..ntt import core as nttc
 from ..ntt import cuda_ntt as cn
 
 
-_COL_CHUNK = 8  # columns (or constraints) stacked into one temporary
+# Chunk sizes, by the bytes of the unpacked transients that a chunk makes
+# (64 B a field element); values do not depend on them.
+_COL_CHUNK = 8         # columns (or constraints) stacked into one temporary
+_LDE_CHUNK = 1 << 26   # columns x LDE points a round-1 transform chunk
+                       # (LCP_COL_CHUNK: columns a chunk)
+_LEAF_CHUNK = 1 << 23  # felts (rows x columns) a row-leaf hashing chunk
+                       # (LCP_LEAF_CHUNK: rows a chunk)
+_EVAL_CHUNK = 1 << 20  # domain points a chunk of round 2 and of DEEP
+_DOT_CHUNK = 1 << 25   # coefficients x columns a chunk of an OOD dot product
+
+
+def _env_chunk(name: str) -> int | None:
+    env = os.environ.get(name)
+    return max(1, int(env)) if env else None
 
 
 class ProverKernels:
@@ -32,6 +55,10 @@ class ProverKernels:
 
     # fri_commit_chain: prove() may derive the FRI zetas on the device
     supports_fri_chain = True
+    # the (16, N) domain tables are kept packed and unpacked a chunk at a
+    # time where they are read; the sharded kernels keep theirs unpacked
+    # (a rank's share is already N/D points)
+    packed_tables = True
 
     def __init__(self, air, domain, device):
         self.air = air
@@ -76,9 +103,15 @@ class ProverKernels:
                             fd.from_int(domain.trace_root_pow(s), device=dev))
                      for s in self.distinct_steps]
             inv_big = fd.batch_inverse(torch.cat(diffs, dim=1))
+            del diffs
             for i, s in enumerate(self.distinct_steps):
                 t[f"bz_inv_{s}"] = inv_big[:, i * n_points:(i + 1) * n_points]
+            del inv_big
+        if self.packed_tables:
+            t = {k: fd.pack(v) for k, v in t.items()}
         self.tables = t
+        # the domain's (16, N) tables were build inputs: let them go
+        domain.forget(device=dev)
 
     def _lde_values(self) -> torch.Tensor:
         """(16, N) Montgomery limbs of the LDE coset points h·w^i."""
@@ -92,6 +125,10 @@ class ProverKernels:
         """(16, k) -> (16, N): entry i is row[i mod k] (k divides N)."""
         return row.repeat(1, self.domain.lde_size // row.shape[1])
 
+    def _table(self, name: str, start: int, stop: int) -> torch.Tensor:
+        """Points [start, stop) of a domain table as (16, ...) limbs."""
+        return fd.unpacked(self.tables[name][:, start:stop])
+
     def _probe_challenges(self):
         """Dummy rap challenges for structural inspection (boundary layout)."""
         return self.air.build_rap_challenges(_ProbeTranscript())
@@ -100,26 +137,95 @@ class ProverKernels:
     # round 1: interpolate columns, LDE, leaf/tree hash
     # ------------------------------------------------------------------
 
-    def interpolate_commit(self, trace_data: torch.Tensor):
-        """(16, cols, n) trace -> (polys (16, cols, n), LDE (16, cols, N),
-        Merkle levels over the LDE rows)."""
+    def alloc_buffers(self, total_cols: int):
+        """Packed (8, total_cols, n) polynomial and (8, total_cols, N) LDE
+        buffers on this device, which successive :meth:`interpolate_commit`
+        calls (main trace, then auxiliary trace) fill in place: one resident
+        copy of both at half the limb layout's bytes."""
+        n = self.air.trace_length()
+        N = self.domain.lde_size
+        return tuple(torch.empty((N_LIMBS // 2, total_cols, m),
+                                 dtype=torch.int32, device=self.device)
+                     for m in (n, N))
+
+    def _col_chunk(self, n_cols: int, n_points: int) -> int:
+        """Columns a round-1 transform chunk: the fewest balanced chunks of
+        at most _LDE_CHUNK columns x points (or LCP_COL_CHUNK columns)."""
+        env = _env_chunk("LCP_COL_CHUNK")
+        if env:
+            return env
+        n_chunks = max(1, -(-n_cols * n_points // _LDE_CHUNK))
+        return -(-n_cols // n_chunks)
+
+    def _extend(self, data: torch.Tensor):
+        """(16, c, n) trace columns -> (polys (16, c, n), LDE (16, c, N))."""
         domain = self.domain
-        polys = nttc.interpolate_fft(trace_data)
+        polys = nttc.interpolate_fft(data)
         lde = nttc.evaluate_on_lde_domain(
             polys, domain.blowup_factor, domain.interpolation_domain_size,
             domain.coset_offset)
-        rows = fd.from_mont(lde).permute(0, 2, 1)  # (16, N, cols)
-        return polys, lde, tree_levels(kd.hash_felt_rows(rows, rows.shape[2]))
+        return polys, lde
+
+    def interpolate_commit(self, trace_data: torch.Tensor, bufs=None,
+                           col_start: int = 0):
+        """Interpolate and extend the columns of ``trace_data`` ((16 or 8,
+        cols, n): limbs or packed words) into the packed buffers ``bufs`` at
+        column ``col_start``, and commit to this call's columns.
+
+        Returns (polys_buf, lde_buf, Merkle levels over the LDE rows of
+        these columns).  With ``bufs=None`` buffers for just these columns
+        are allocated."""
+        n_cols = trace_data.shape[1]
+        if bufs is None:
+            bufs, col_start = self.alloc_buffers(n_cols), 0
+        polys_buf, lde_buf = bufs
+        step = self._col_chunk(n_cols, lde_buf.shape[2])
+        for c0 in range(0, n_cols, step):
+            polys, lde = self._extend(
+                fd.unpacked(trace_data[:, c0:c0 + step]).contiguous())
+            self._pack_update(polys_buf, polys, col_start + c0)
+            del polys
+            self._pack_update(lde_buf, lde, col_start + c0)
+            del lde
+        leaves = self._row_leaves(lde_buf[:, col_start:col_start + n_cols])
+        return polys_buf, lde_buf, self._commit(leaves, self.domain.lde_size)
+
+    def _pack_update(self, buf: torch.Tensor, piece: torch.Tensor,
+                     start: int) -> None:
+        """Pack a (16, c, points) piece into the resident ``buf`` at column
+        ``start``, in place."""
+        buf[:, start:start + piece.shape[1]] = fd.pack(piece)
+
+    def _row_leaves(self, cols: torch.Tensor) -> torch.Tensor:
+        """Keccak row leaves (points, 4) of LDE columns (16 or 8, c, points),
+        unpacked, out of Montgomery form and transposed a chunk of rows at a
+        time."""
+        n_cols, n_points = cols.shape[1], cols.shape[2]
+        step = (_env_chunk("LCP_LEAF_CHUNK")
+                or max(1, _LEAF_CHUNK // max(n_cols, 1)))
+        leaves = torch.empty((n_points, 4), dtype=torch.int64,
+                             device=cols.device)
+        for r0 in range(0, n_points, step):
+            rows = fd.from_mont(fd.unpacked(cols[:, :, r0:r0 + step]))
+            leaves[r0:r0 + step] = kd.hash_felt_rows(rows.permute(0, 2, 1),
+                                                     n_cols)
+        return leaves
+
+    def _commit(self, leaves: torch.Tensor, n_leaves: int) -> list:
+        """Levels of the Merkle tree over ``n_leaves`` leaf digests."""
+        return tree_levels(leaves)
 
     def gather_columns(self, lde_evals: torch.Tensor, idxs: list[int]) -> torch.Tensor:
-        """All-column openings at the query indices: (16, cols, len(idxs))."""
+        """All-column openings at the query indices: (16, cols, len(idxs))
+        limbs, out of limbs or packed words (only the opened points are
+        unpacked)."""
         ix = torch.tensor(idxs, dtype=torch.int64, device=lde_evals.device)
-        return lde_evals.index_select(-1, ix)
+        return fd.unpacked(lde_evals.index_select(-1, ix))
 
     def gather_points(self, src: torch.Tensor, idxs: list[int],
                       length: int) -> torch.Tensor:
-        """The values of src (16, ..., length) at the points idxs, on this
-        device: (16, ..., len(idxs))."""
+        """The values of src (16 or 8, ..., length) at the points idxs, on
+        this device: (16, ..., len(idxs)) limbs."""
         return self.gather_columns(src, idxs)
 
     def tree(self, levels) -> MerkleTree:
@@ -131,44 +237,75 @@ class ProverKernels:
         return fd.to_ints(coeffs)
 
     # ------------------------------------------------------------------
-    # round 2: whole-domain constraint evaluation + H + commit
+    # round 2: constraint evaluation in domain chunks + H + commit
     # ------------------------------------------------------------------
+
+    def _halo(self, lde_evals: torch.Tensor, h: int) -> torch.Tensor:
+        """The h points that follow this device's last LDE point: the first
+        points of the domain (the frame wraps round)."""
+        return wrap_halo(lde_evals, h)
 
     def _constraint_sum(self, lde_evals, boundary_ab, transition_ab,
                         boundary_values, rap_arrays) -> torch.Tensor:
+        """The constraint composition at this device's LDE points, computed
+        _EVAL_CHUNK points at a time into one (16, points) accumulator."""
+        ctxc = self.air.context
+        offsets = ctxc.transition_offsets
+        blowup = self.domain.blowup_factor
+        n_points = lde_evals.shape[2]
+        h = max(offsets) * blowup
+        tail = self._halo(lde_evals, h)
+        step_groups: dict = {}
+        for i, step in enumerate(self.boundary_steps):
+            step_groups.setdefault(step, []).append(i)
+        groups: dict = {}
+        for i, (d, e) in enumerate(zip(ctxc.transition_degrees,
+                                       ctxc.transition_exemptions)):
+            groups.setdefault((d, e), []).append(i)
+        acc = torch.empty((N_LIMBS, n_points), dtype=torch.int32,
+                          device=lde_evals.device)
+        step = min(n_points, _EVAL_CHUNK)
+        for a in range(0, n_points, step):
+            b = min(a + step, n_points)
+            halo = lde_evals[:, :, b:b + h]
+            if halo.shape[2] < h:
+                halo = torch.cat([halo, tail[:, :, :h - halo.shape[2]]], dim=2)
+            frame = HaloFrame(lde_evals[:, :, a:b], halo, offsets, blowup)
+            acc[:, a:b] = self._chunk_sum(
+                frame, a, b, step_groups, sorted(groups.items()),
+                boundary_ab, transition_ab, boundary_values, rap_arrays)
+        return acc
+
+    def _chunk_sum(self, frame, a, b, step_groups, group_list, boundary_ab,
+                   transition_ab, boundary_values, rap_arrays) -> torch.Tensor:
+        """The composition at points [a, b) of this device's LDE."""
         air = self.air
-        ctxc = air.context
-        tc = self.tables
+        n_points = b - a
         acc = None
 
         def accumulate(term):
             nonlocal acc
             acc = term if acc is None else fd.add(acc, term)
 
-        step_groups: dict = {}
-        for i, step in enumerate(self.boundary_steps):
-            step_groups.setdefault(step, []).append(i)
+        d_adj = self._table("d_adj_boundary", a, b)
         for step, idxs in step_groups.items():
             ix = torch.tensor(idxs, dtype=torch.int64, device=self.device)
             cols = [self.boundary_cols[i] for i in idxs]
-            nums = fd.sub(lde_evals[:, cols, :],
+            nums = fd.sub(frame.data[:, cols, :n_points],
                           boundary_values.index_select(1, ix)[:, :, None])
             coeff = fd.add(
-                fd.mul(tc["d_adj_boundary"][:, None, :],
+                fd.mul(d_adj[:, None, :],
                        boundary_ab[0].index_select(1, ix)[:, :, None]),
                 boundary_ab[1].index_select(1, ix)[:, :, None])
             summed = nttc.sum_reduce(fd.mul(nums, coeff), axis=1)
-            accumulate(fd.mul(summed, tc[f"bz_inv_{step}"]))
+            accumulate(fd.mul(summed, self._table(f"bz_inv_{step}", a, b)))
+        del d_adj
 
-        frame = self._frame(lde_evals)
         rap_fv = air.wrap_rap_challenges(frame.ctx, rap_arrays)
         evals = air.compute_transition(frame, rap_fv)
-        groups: dict = {}
-        for i, (d, e) in enumerate(zip(ctxc.transition_degrees,
-                                       ctxc.transition_exemptions)):
-            groups.setdefault((d, e), []).append(i)
-        n_points = lde_evals.shape[2]
-        for (degree, exemption), idxs in sorted(groups.items()):
+        zerofier = self._table("zerofier_inv", a, b)
+        for (degree, exemption), idxs in group_list:
+            d_adj = self._table(f"d_adj_{degree}", a, b)
             summed = None
             for j in range(0, len(idxs), _COL_CHUNK):
                 part = idxs[j:j + _COL_CHUNK]
@@ -178,21 +315,17 @@ class ProverKernels:
                 for i in part:
                     evals[i] = None  # stacked: let the evaluation go
                 coeff = fd.add(
-                    fd.mul(tc[f"d_adj_{degree}"][:, None, :],
+                    fd.mul(d_adj[:, None, :],
                            transition_ab[0].index_select(1, ix)[:, :, None]),
                     transition_ab[1].index_select(1, ix)[:, :, None])
                 s = nttc.sum_reduce(fd.mul(evs, coeff), axis=1)
                 summed = s if summed is None else fd.add(summed, s)
-            summed = fd.mul(summed, tc["zerofier_inv"])
+            summed = fd.mul(summed, zerofier)
             if exemption > 0:
-                summed = fd.mul(summed, tc[f"exemption_{exemption}"])
+                summed = fd.mul(summed,
+                                self._table(f"exemption_{exemption}", a, b))
             accumulate(summed)
         return acc
-
-    def _frame(self, lde_evals: torch.Tensor) -> DeviceFrame:
-        """The transition frame: row k is the LDE shifted by k·blowup."""
-        return DeviceFrame(lde_evals, self.air.context.transition_offsets,
-                           self.domain.blowup_factor)
 
     def round2(self, lde_evals, boundary_ab, transition_ab, boundary_values,
                rap_arrays):
@@ -204,8 +337,10 @@ class ProverKernels:
         acc = self._constraint_sum(lde_evals, boundary_ab, transition_ab,
                                    boundary_values, rap_arrays)
         h_coeffs = nttc.interpolate_offset_fft(acc, domain.coset_offset)
+        del acc
         h1 = h_coeffs[:, 0::2].contiguous()
         h2 = h_coeffs[:, 1::2].contiguous()
+        del h_coeffs
         h1_lde = nttc.evaluate_on_lde_domain(
             h1, domain.blowup_factor, air.trace_length(), domain.coset_offset)
         h2_lde = nttc.evaluate_on_lde_domain(
@@ -222,11 +357,25 @@ class ProverKernels:
         """(16, n) powers [1, base, base^2, ...] for :meth:`eval_at_powers`."""
         return fd.powers(base, n, device=self.device)
 
+    def _dot(self, coeffs: torch.Tensor, powers_table: torch.Tensor):
+        """sum_i coeffs[..., i] * powers[i] in Montgomery form, (16, ...):
+        coeffs (16 or 8, ..., L) are unpacked _DOT_CHUNK elements at a time
+        and the partial sums added."""
+        length = coeffs.shape[-1]
+        batch = max(1, coeffs[0, ..., 0].numel())
+        step = min(length, 1 << max(0, (_DOT_CHUNK // batch).bit_length() - 1))
+        acc = None
+        for a in range(0, length, step):
+            part = nttc.sum_reduce(
+                fd.mul(fd.unpacked(coeffs[..., a:a + step]),
+                       powers_table[..., a:a + step]), axis=-1)
+            acc = part if acc is None else fd.add(acc, part)
+        return acc
+
     def eval_at_powers(self, coeffs: torch.Tensor, powers_table: torch.Tensor):
         """sum_i coeffs[..., i] * powers[i], out of Montgomery form:
         (16, ...) canonical residues."""
-        return fd.from_mont(nttc.sum_reduce(fd.mul(coeffs, powers_table),
-                                            axis=-1))
+        return fd.from_mont(self._dot(coeffs, powers_table))
 
     # ------------------------------------------------------------------
     # round 4: DEEP evaluation-form combination + interpolation
@@ -245,29 +394,39 @@ class ProverKernels:
 
     def _deep_evaluations(self, lde_evals, h1_lde, h2_lde, point_arrs,
                           gamma_arr, gammas_hh, ood_rows) -> torch.Tensor:
-        """The DEEP composition's values at this device's LDE points."""
+        """The DEEP composition's values at this device's LDE points, a chunk
+        of _EVAL_CHUNK points and _COL_CHUNK columns at a time."""
         n_offsets = len(self.air.context.transition_offsets)
-        lv = self.tables["lde_values"]
-        N = lv.shape[1]
+        N = lde_evals.shape[2]
+        lv = self._table("lde_values", 0, N)
         inv_all = fd.batch_inverse(torch.cat(
             [fd.sub(lv, point_arrs[k]) for k in range(n_offsets + 1)], dim=1))
-        acc = None
-        for ki in range(n_offsets):
-            inv_k = inv_all[:, ki * N:(ki + 1) * N]
-            g = gamma_arr[:, ki::n_offsets].contiguous()  # (16, cols)
+        del lv
+        gammas = [gamma_arr[:, ki::n_offsets].contiguous()  # (16, cols)
+                  for ki in range(n_offsets)]
+        acc = torch.empty((N_LIMBS, N), dtype=torch.int32,
+                          device=lde_evals.device)
+        step = min(N, _EVAL_CHUNK)
+        for a in range(0, N, step):
+            b = min(a + step, N)
+            s = None
             for c0 in range(0, lde_evals.shape[1], _COL_CHUNK):
                 c1 = c0 + _COL_CHUNK
-                terms = fd.mul(
-                    fd.sub(lde_evals[:, c0:c1], ood_rows[ki][:, c0:c1, None]),
-                    inv_k[:, None, :])
-                terms = fd.mul(terms, g[:, c0:c1, None])
-                s = nttc.sum_reduce(terms, axis=1)
-                acc = s if acc is None else fd.add(acc, s)
-        inv_z = inv_all[:, n_offsets * N:]
-        for half, h_lde in enumerate((h1_lde, h2_lde)):
-            term = fd.mul(fd.mul(fd.sub(h_lde, ood_rows[n_offsets][:, half:half + 1]),
-                                 inv_z), gammas_hh[half])
-            acc = term if acc is None else fd.add(acc, term)
+                cols = fd.unpacked(lde_evals[:, c0:c1, a:b])
+                for ki in range(n_offsets):
+                    terms = fd.mul(
+                        fd.sub(cols, ood_rows[ki][:, c0:c1, None]),
+                        inv_all[:, ki * N + a:ki * N + b][:, None, :])
+                    terms = fd.mul(terms, gammas[ki][:, c0:c1, None])
+                    part = nttc.sum_reduce(terms, axis=1)
+                    s = part if s is None else fd.add(s, part)
+            inv_z = inv_all[:, n_offsets * N + a:n_offsets * N + b]
+            for half, h_lde in enumerate((h1_lde, h2_lde)):
+                term = fd.mul(fd.mul(
+                    fd.sub(h_lde[:, a:b], ood_rows[n_offsets][:, half:half + 1]),
+                    inv_z), gammas_hh[half])
+                s = fd.add(s, term)
+            acc[:, a:b] = s
         return acc
 
     # ------------------------------------------------------------------

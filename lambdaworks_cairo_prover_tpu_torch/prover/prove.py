@@ -209,6 +209,41 @@ def _fri_commit(kern, domain: Domain, deep_coeffs: torch.Tensor, transcript,
     return fri_layers, fri_last_value
 
 
+def _mem(tag: str, device=None) -> None:
+    """Device-memory telemetry under LCP_DEBUG_MEM=1 (the JAX package's
+    prover/prove.py:_mem): after a synchronize, the bytes that the caching
+    allocator has handed out now and at most since the last reset of the
+    peak, the bytes it holds, and the six largest CUDA tensors alive (a scan
+    of the garbage collector's objects), so that a phase that runs out of
+    memory can be found.  Without a CUDA device it prints "unavailable"."""
+    if not os.environ.get("LCP_DEBUG_MEM"):
+        return
+    if device is not None and torch.device(device).type != "cuda":
+        print(f"[mem {tag}] unavailable: the prove runs on "
+              f"{torch.device(device)}", flush=True)
+        return
+    if not torch.cuda.is_available():
+        print(f"[mem {tag}] unavailable: no CUDA device", flush=True)
+        return
+    import gc
+
+    torch.cuda.synchronize()
+    live = {}
+    for obj in gc.get_objects():
+        try:
+            if isinstance(obj, torch.Tensor) and obj.is_cuda:
+                storage = obj.untyped_storage()
+                live[storage.data_ptr()] = (storage.nbytes(), tuple(obj.shape))
+        except (ReferenceError, RuntimeError):
+            continue  # a dead weak proxy, or a tensor without a storage
+    top = sorted(live.values(), key=lambda t: -t[0])[:6]
+    tops = ", ".join(f"{shape}:{nbytes / 1e9:.2f}" for nbytes, shape in top)
+    print(f"[mem {tag}] allocated={torch.cuda.memory_allocated() / 1e9:.2f}GB "
+          f"peak={torch.cuda.max_memory_allocated() / 1e9:.2f}GB "
+          f"reserved={torch.cuda.memory_reserved() / 1e9:.2f}GB "
+          f"top=[{tops}]", flush=True)
+
+
 def _sample_z_ood(domain: Domain, transcript) -> int:
     while True:
         z = transcript_to_field(transcript)
@@ -243,6 +278,7 @@ def prove(
     shard_axis: str = "domain",
     instrument: bool = False,
     transcript_factory=DefaultTranscript,
+    donate_trace: bool = False,
 ) -> StarkProof:
     """Generate a STARK proof on ``device`` ("cpu", "cuda", "cuda:1", ...).
 
@@ -268,7 +304,16 @@ def prove(
       rest runs as on one device on every rank, the domain replicated.
 
     Every rank returns the same proof, byte-equal to the single-device
-    proof for any mesh size and either layout."""
+    proof for any mesh size and either layout.
+
+    With ``donate_trace`` the caller gives up ``main_trace``: its ``data``
+    is None from the call on, and the prover frees the trace on the device
+    once the auxiliary trace is built (the AIR may free it earlier, as
+    soon as it has read the columns it needs).  ``LCP_AUX_HOST=1`` builds
+    the auxiliary trace with the AIR's host oracle
+    (``build_auxiliary_trace_host``, where it has one) instead of on the
+    device; ``LCP_DEBUG_MEM=1`` prints the device memory after each phase
+    (:func:`_mem`).  Neither changes a byte of the proof."""
     if shard_axis not in ("domain", "columns"):
         raise ProvingError(f"unknown shard_axis {shard_axis!r}; expected "
                            f"'domain' or 'columns'")
@@ -287,7 +332,14 @@ def prove(
             and main_trace.n_rows % mesh.size()):
         raise ProvingError(f"a trace of {main_trace.n_rows} rows cannot be "
                            f"domain-sharded over {mesh.size()} ranks")
-    main_trace = main_trace.to(device)
+    if donate_trace:
+        # the prover's TraceTable holds the only reference from here on, so
+        # that releasing it frees the device memory
+        data, main_trace.data = main_trace.data, None
+        main_trace = TraceTable(data.to(device))
+        del data
+    else:
+        main_trace = main_trace.to(device)
     air = air_class(main_trace.n_rows, pub_inputs, proof_options)
     domain = Domain(air)
     if domain.lde_size > 1 << ProofOptions.NUM_BITS_MAX_DOMAIN_SIZE:
@@ -312,22 +364,43 @@ def prove(
     offsets = air.context.transition_offsets
     _sync(device)
     timings["round0"] = time.perf_counter() - t0
+    _mem("round0: kernels+tables built", device)
 
     # ======================= Round 1: RAP =================================
     t1 = time.perf_counter()
-    trace_polys, lde_evals, main_levels = kern.interpolate_commit(main_trace.data)
+    # one packed (8, main + aux columns, n | N) buffer pair for the whole
+    # trace; both commits write into it in place (prover/kernels.py)
+    n_main_cols = main_trace.n_cols
+    n_aux_cols = air.number_auxiliary_rap_columns()
+    trace_polys, lde_evals, main_levels = kern.interpolate_commit(
+        main_trace.data, bufs=kern.alloc_buffers(n_main_cols + n_aux_cols),
+        col_start=0)
+    _mem("round1: main trace committed", device)
     main_tree = kern.tree(main_levels)
     transcript.append(main_tree.root)
     lde_trace_merkle_roots = [main_tree.root]
     lde_trace_merkle_trees = [main_tree]
 
     rap_challenges = air.build_rap_challenges(transcript)
+    validate = os.environ.get("LCP_VALIDATE_TRACE")
+    if donate_trace and not validate:
+        # the AIR may free the trace as soon as it has read the columns it
+        # needs (the auxiliary build's transients then reuse that memory);
+        # the oracle below reads the whole trace, so not under it
+        main_trace._release_after_read = True
     t1a = time.perf_counter()
-    aux_trace = air.build_auxiliary_trace(main_trace, rap_challenges)
+    if (os.environ.get("LCP_AUX_HOST") == "1"
+            and hasattr(air, "build_auxiliary_trace_host")):
+        # the host oracle (same values): no device transients beyond the
+        # upload of the finished columns
+        aux_trace = air.build_auxiliary_trace_host(main_trace, rap_challenges)
+    else:
+        aux_trace = air.build_auxiliary_trace(main_trace, rap_challenges)
     if not aux_trace.is_empty():
         _sync(device)
         timings["round1_aux_build"] = time.perf_counter() - t1a
-    if os.environ.get("LCP_VALIDATE_TRACE"):
+    _mem("round1: aux trace built", device)
+    if validate:
         # Reference prover.rs:573-580 runs the pointwise constraint oracle on
         # every debug-build prove; here it is env-gated (it is O(n·constraints)
         # host work) and a failure aborts with a typed error instead of
@@ -336,18 +409,23 @@ def prove(
 
         if not validate_trace(air, main_trace, aux_trace, rap_challenges):
             raise ProvingError("trace does not satisfy the AIR constraints")
-    if not aux_trace.is_empty():
-        aux_polys, aux_lde, aux_levels = kern.interpolate_commit(
-            aux_trace.data.to(device))
-        trace_polys = torch.cat([trace_polys, aux_polys], dim=1)
-        lde_evals = torch.cat([lde_evals, aux_lde], dim=1)
+    if donate_trace:
+        main_trace.data = None  # the last reference: the trace is freed
+    if aux_trace.n_cols != n_aux_cols:
+        raise ProvingError(f"the AIR built {aux_trace.n_cols} auxiliary "
+                           f"columns but declares {n_aux_cols}")
+    if n_aux_cols:
+        trace_polys, lde_evals, aux_levels = kern.interpolate_commit(
+            aux_trace.data.to(device), bufs=(trace_polys, lde_evals),
+            col_start=n_main_cols)
         aux_tree = kern.tree(aux_levels)
         transcript.append(aux_tree.root)
         lde_trace_merkle_roots.append(aux_tree.root)
         lde_trace_merkle_trees.append(aux_tree)
-    aux_trace = None
+    aux_trace = None  # committed: the (16, aux columns, n) build goes
     total_cols = trace_polys.shape[1]
     timings["round1"] = time.perf_counter() - t1
+    _mem("round1: aux committed", device)
 
     # ======================= Round 2: composition poly ====================
     t2 = time.perf_counter()
@@ -373,6 +451,7 @@ def prove(
     composition_tree = kern.tree(comp_levels)
     transcript.append(composition_tree.root)
     timings["round2"] = time.perf_counter() - t2
+    _mem("round2: composition committed", device)
 
     # ======================= Round 3: OOD evaluations =====================
     t3 = time.perf_counter()
@@ -403,6 +482,7 @@ def prove(
         for el in row:
             transcript.append(fh.to_bytes_be(el))
     timings["round3"] = time.perf_counter() - t3
+    _mem("round3: OOD evaluations", device)
 
     # ======================= Round 4: DEEP + FRI ==========================
     t4 = time.perf_counter()
@@ -422,6 +502,7 @@ def prove(
     )
     _sync(device)
     timings["round4_deep"] = time.perf_counter() - t4
+    _mem("round4: deep poly", device)
 
     # FRI commit phase (reference fri/mod.rs:20-72)
     t4b = time.perf_counter()
@@ -429,6 +510,7 @@ def prove(
                                              transcript, device)
     _sync(device)
     timings["round4_fri_commit"] = time.perf_counter() - t4b
+    _mem("round4: FRI committed", device)
 
     # grinding (reference prover.rs:380-385)
     t4c = time.perf_counter()
@@ -531,6 +613,7 @@ def prove(
         )
     timings["round4_queries"] = time.perf_counter() - t4d
     timings["round4"] = time.perf_counter() - t4
+    _mem("round4: queries gathered", device)
 
     if instrument:
         # whole rounds only: the round1_* and round4_* parts lie inside them

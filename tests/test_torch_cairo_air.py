@@ -47,7 +47,7 @@ def test_device_rap_build_equals_both_host_oracles(name):
     aux = air.build_auxiliary_trace(trace, CHALLENGES)
     assert aux.data.shape == (16, 18, trace.n_rows)
     host = air.build_auxiliary_trace_host(trace, CHALLENGES)
-    assert torch.equal(aux.data, host.data)
+    assert torch.equal(aux.data, host.unpacked())
 
     gen, args = PROGRAMS[name]
     jtrace, jpub = jrunner.generate_prover_args(getattr(jprograms, gen)(*args))
@@ -55,7 +55,7 @@ def test_device_rap_build_equals_both_host_oracles(name):
                          JOptions.default_test_options()
                          ).build_auxiliary_trace_host(jtrace, CHALLENGES)
     assert torch.equal(aux.data,
-                       trace_from_numpy(np.asarray(jaux.data), "cpu").data)
+                       trace_from_numpy(np.asarray(jaux.data), "cpu").unpacked())
 
 
 def _seeded_addresses(rng, m):

@@ -202,10 +202,10 @@ def test_main_trace_matches_jax(prover_args):
     jtrace, _, ttrace, _ = prover_args
     assert (ttrace.n_cols, ttrace.n_rows) == (jtrace.n_cols, jtrace.n_rows)
     assert ttrace.to_int_columns() == jtrace.to_int_columns()
-    # the JAX trace is resident in the packed (8, ...) layout
+    # both traces are resident in the packed (8, ...) layout
     carried = trace_from_numpy(np.asarray(jtrace.data), "cpu")
     assert torch.equal(carried.data, ttrace.data)
-    assert np.array_equal(limbs_to_numpy(ttrace.data),
+    assert np.array_equal(limbs_to_numpy(ttrace.unpacked()),
                           np.asarray(jtrace.unpacked()))
     assert ttrace.get_row_ints(3) == jtrace.get_row_ints(3)
     assert set(ttrace._timings) == {"vm", "vm_name", "trace_build", "ingest"}
@@ -263,7 +263,7 @@ def test_compact_ingest_equals_host_montgomery_form():
     ]
     trace = TraceTable.from_int_columns(cols, device="cpu")
     want = tfd.from_ints([v for col in cols for v in col], device="cpu")
-    assert torch.equal(trace.data, want.reshape(16, len(cols), n_rows))
+    assert torch.equal(trace.unpacked(), want.reshape(16, len(cols), n_rows))
     assert trace.to_int_columns() == cols
     assert tfd.to_ints(trace.col(3)) == cols[3]
     both = trace.concatenate(TraceTable.from_int_columns(cols[:2], device="cpu"))

@@ -116,7 +116,7 @@ def test_fibonacci_rap_device_build_equals_host_construction():
         gamma = (int(rng.integers(1 << 62)) << 190) % P
         dev = air.build_auxiliary_trace(trace, (gamma,))
         host = air.build_auxiliary_trace_host(trace, (gamma,))
-        assert torch.equal(dev.data, host.data)
+        assert torch.equal(dev.unpacked(), host.unpacked())
         jair = jrap.FibonacciRAP(
             trace.n_rows, jrap.FibonacciRAPPublicInputs(STEPS, 1, 1),
             JOptions.default_test_options())
@@ -223,4 +223,5 @@ def test_validate_trace_on_a_cairo_trace_matches_jax(tamper, capsys):
         jair, jt, jair.build_auxiliary_trace_host(jt, rap), rap)
     assert capsys.readouterr().out == printed
     assert got == (tamper is None)
-    assert torch.equal(air.build_auxiliary_trace(trace, rap).data, aux.data)
+    assert torch.equal(air.build_auxiliary_trace(trace, rap).unpacked(),
+                       aux.unpacked())

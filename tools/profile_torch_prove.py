@@ -4,12 +4,14 @@
 Run from the root of the repository on a machine with a CUDA GPU:
 
     python3 tools/profile_torch_prove.py [--workload simple_fibonacci|cairo_fib|cairo_hints]
-        [--log-rows 19] [--repeats 3] [--fri-route chain|per-layer|both] [--out DIR]
+        [--log-rows 19] [--fib-n 70000] [--repeats 3]
+        [--fri-route chain|per-layer|both] [--out DIR]
 
 ``--workload simple_fibonacci`` (the default) proves the one-column example
 AIR at 2^``--log-rows`` rows; ``--workload cairo_fib`` runs the Cairo program
-``fibonacci_program(70000)`` through ``generate_prover_args`` (2^19 rows x 52
-columns) and proves its trace with ``generate_cairo_proof``;
+``fibonacci_program(--fib-n)`` through ``generate_prover_args`` (70000, the
+default: 2^19 rows x 52 columns; 280000: 2^21 rows) and proves its trace
+with ``generate_cairo_proof``;
 ``--workload cairo_hints`` does the same with the hinted range-check program
 ``compare_lesser_array_program(9600)`` (python VM, 2^19 rows x 61 columns).
 
@@ -60,7 +62,7 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-CAIRO_FIB_N = 70000  # the cairo_fib workload: 2^19 rows x 52 columns
+CAIRO_FIB_N = 70000  # the cairo_fib workload's default: 2^19 rows x 52 columns
 HINTS_LENGTH = 9600  # the cairo_hints workload: 2^19 rows x 61 columns
 NTT_LOG = 20  # --mesh: the four-step NTT's size, bench.py's BENCH_NTT_LOG2
 
@@ -92,6 +94,8 @@ def main() -> int:
                     default="simple_fibonacci")
     ap.add_argument("--log-rows", type=int, default=19,
                     help="simple_fibonacci: log2 of the trace length")
+    ap.add_argument("--fib-n", type=int, default=CAIRO_FIB_N,
+                    help="cairo_fib: n of fibonacci_program(n)")
     ap.add_argument("--repeats", type=int, default=3)
     ap.add_argument("--fri-route", choices=("chain", "per-layer", "both"),
                     default="chain")
@@ -155,7 +159,7 @@ def main() -> int:
     if args.workload in ("cairo_fib", "cairo_hints"):
         air_class = CairoAIR
         program, name = (
-            (fibonacci_program(CAIRO_FIB_N), f"fibonacci_program({CAIRO_FIB_N})")
+            (fibonacci_program(args.fib_n), f"fibonacci_program({args.fib_n})")
             if args.workload == "cairo_fib" else
             (compare_lesser_array_program(HINTS_LENGTH),
              f"compare_lesser_array_program({HINTS_LENGTH})"))
