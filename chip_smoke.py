@@ -17,6 +17,13 @@ Phases (any failure exits non-zero):
      columns, 2^22 at one), H3 in place and out of place, and at 2^21 also
      one stage alone and H4 on 2^10-point chunks in place; and the whole
      NTT at 2^4 .. 2^22, forward and inverse, alone and with a batch of 3;
+     then the Keccak-256 kernels (``[keccak]``), bit for bit: K1
+     keccak_rows at (16, c, 2^21) for c = 61, 43, 34, 18 in the row-leaf
+     layout, the composition's 2 columns and the FRI's single-felt leaves
+     at 2^21 and 2^20; K2 keccak_pairs at every level of a tree over 2^21
+     leaves; K3 keccak_grind at batches of 2^20 nonces, also against the
+     host's leading_zeros_of_nonce; their registers (no spill) and SASS,
+     whose 32-bit integer instructions a permutation set their bound;
   4. simple_fibonacci proofs against the JAX package's fixtures: 2^10 rows
      with test options (equal bytes) and, where the fixture has a digest,
      its size with the bench options (equal sha256);
@@ -61,7 +68,8 @@ Phases (any failure exits non-zero):
      (tests/fixtures/torch_port/cairo_rc_bench_digest.json);
  12. the toy field: a child process with LCP_FIELD=f257 proves
      simple_fibonacci at 8 rows on the card, byte-equal to the JAX
-     package's GF(257) proof, verifies it, and launches none of H1-H4;
+     package's GF(257) proof, verifies it, launches none of H1-H4 and
+     launches K1 and K2 (Keccak does not depend on the field);
  13. the command line once on the card (prove_and_verify, a child process);
  14. the multi-device prover (``[parallel]``): Cairo fib(70000) with the
      bench options on a one-rank NCCL mesh (``prove(mesh=...)``,
@@ -69,7 +77,8 @@ Phases (any failure exits non-zero):
      verified, every kernel launched; 4 gloo ranks sharing the card (child
      processes) prove Cairo fib(5) with test options and simple_fibonacci
      at the fixture's 2^16 rows with the bench options, each equal to the
-     JAX package's bytes, with H1 and H3/H4 launched on every rank; H3/H4
+     JAX package's bytes, with H1, H3/H4, K1 and K2 launched on every rank
+     (K3 where the options grind on the card); H3/H4
      against their plain versions at the local shapes of a 2^21-point,
      52-column four-step transform over 4 ranks, (16, 52, 256, 2048) and
      (16, 52, 512, 1024).
@@ -177,6 +186,66 @@ def butterfly_ops(n_points: int, log_m_hi: int, n_stages: int) -> int:
     for log_m in range(log_m_hi, log_m_hi - n_stages, -1):
         products += pairs if log_m > 1 else pairs // 2 * log_m
     return 2 * OPS_ADD * n_stages * pairs + OPS_MUL * products
+
+
+def keccak_blocks(n_cols: int) -> int:
+    """Keccak-f permutations that a row of n_cols felts takes: its 32-byte
+    encodings and the padding, 136 bytes a block."""
+    return 32 * n_cols // 136 + 1
+
+
+def sass_counts(binary: str) -> dict:
+    """Function name -> (instructions, Counter of opcodes) from cuobjdump."""
+    import collections
+    import re
+
+    from lambdaworks_cairo_prover_tpu_torch import cuda_lib
+
+    tool = os.path.join(os.path.dirname(cuda_lib._nvcc()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", binary], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            out[name] = collections.Counter()
+            continue
+        m = re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\d\s+)?([A-Z0-9_.]+)", line)
+        if m and name:
+            out[name][m.group(1).split(".")[0]] += 1
+    return {k: (sum(c.values()), c) for k, c in out.items()}
+
+
+# SASS opcodes that are not 32-bit integer work of a thread: memory,
+# control, special registers (the uniform datapath's U* ops run beside)
+NOT_INT_OPS = {"LDG", "STG", "LD", "ST", "LDC", "LDS", "STS", "ATOM", "ATOMG",
+               "RED", "EXIT", "BRA", "RET", "NOP", "BSSY", "BSYNC", "BAR",
+               "S2R", "CS2R", "CALL", "YIELD", "WARPSYNC", "MEMBAR"}
+
+
+def ptxas_report(log: str) -> dict:
+    """Function -> registers, stack frame and spill bytes, from the build's
+    ``-Xptxas=-v`` lines."""
+    import re
+
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties "
+                      r"for )([^' ]+)", line)
+        if m:
+            name = m.group(1)
+            out.setdefault(name, {})
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and name:
+            out[name].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name]["registers"] = int(m.group(1))
+    return out
 
 
 class SmokeFailure(Exception):
@@ -616,6 +685,194 @@ def phase_kernels(torch, dev) -> dict:
     return out
 
 
+def digest_err(torch, a, b) -> int:
+    """Largest |a - b| over the bytes of two digest tensors (0 iff equal)."""
+    require(a.shape == b.shape, f"shape {tuple(a.shape)} != {tuple(b.shape)}")
+    if a.numel() == 0:
+        return 0
+    return max_abs_err(torch, a.contiguous().view(torch.uint8),
+                       b.contiguous().view(torch.uint8))
+
+
+def keccak_build_facts() -> dict:
+    """Registers, spills and SASS of K1-K3, and the 32-bit integer
+    instructions of one permutation: those of K2's kernel, one straight-line
+    permutation of a 64-byte message, less its loads, stores, control and
+    special-register reads.  Fails on a spill or a stack frame."""
+    from lambdaworks_cairo_prover_tpu_torch import cuda_lib
+
+    info = cuda_lib.build_info()
+    ptxas = ptxas_report(info["log"])
+    sass = sass_counts(info["path"])
+    facts = {}
+    for kernel in ("keccak_rows_kernel", "keccak_pairs_kernel",
+                   "keccak_grind_kernel"):
+        regs = [v for k, v in ptxas.items() if kernel in k]
+        code = [v for k, v in sass.items() if kernel in k]
+        require(len(regs) == 1 and len(code) == 1,
+                f"{kernel}: not found in the build's report or its SASS")
+        count, ops = code[0]
+        int_ops = sum(n for op, n in ops.items()
+                      if op not in NOT_INT_OPS and not op.startswith("U"))
+        facts[kernel] = {**regs[0], "sass": count, "int_ops": int_ops,
+                         "opcodes": dict(ops.most_common(8))}
+        log(f"[keccak] {kernel}: {regs[0]}; SASS {count} instructions, "
+            f"{int_ops} of them 32-bit integer work; {dict(ops.most_common(8))}")
+        # the state stays in registers: no spill and no local array
+        require(regs[0].get("spill_stores") == 0 and
+                regs[0].get("spill_loads") == 0 and regs[0].get("stack") == 0,
+                f"{kernel} spills registers or keeps a local array")
+    per_perm = facts["keccak_pairs_kernel"]["int_ops"]
+    require(per_perm > 24 * 100, f"{per_perm} instructions a permutation: "
+            "the SASS count went wrong")
+    facts["ops_per_permutation"] = per_perm
+    return facts
+
+
+def phase_keccak(torch, dev) -> dict:
+    """K1-K3 against their plain versions on the card, bit for bit, and their
+    times.  K1 at the row leaves of every commit the proves make: (16, c,
+    2^21) in _row_leaves' layout for the hinted run's 61 and 43 columns and
+    fib(70000)'s 34 and 18, the composition's 2 columns in round 2's (16,
+    2^21, 2) layout, and the single-felt FRI leaves at 2^21 and 2^20; K2 at
+    every level of a tree over 2^21 leaves (2^21 digests down to 2) and at
+    the FRI chain's draw; K3 at batches of 2^20 nonces against the host's
+    leading_zeros_of_nonce.  Returns the kernels' records."""
+    import numpy as np
+    from lambdaworks_cairo_prover_tpu_torch.hash import cuda_keccak as ck
+    from lambdaworks_cairo_prover_tpu_torch.hash import keccak_device as kd
+    from lambdaworks_cairo_prover_tpu_torch.hash.merkle import tree_levels
+    from lambdaworks_cairo_prover_tpu_torch.prover.grinding import (
+        leading_zeros_of_nonce)
+
+    facts = keccak_build_facts()
+    per_perm = facts["ops_per_permutation"]
+    lde = 1 << LDE_LOG
+    errs = {"keccak_rows": 0, "keccak_pairs": 0, "keccak_grind": 0}
+
+    def rows_record(x, got, plain, n_cols, n_rows, run, reps):
+        """Error, times and bound of one K1 shape (x: what K1 reads)."""
+        want, plain_ms = timed(torch, plain)
+        err = digest_err(torch, got, want)
+        errs["keccak_rows"] = max(errs["keccak_rows"], err)
+        rec = {"shape": shape_text(x), "max_abs_err": err,
+               "ms": cuda_ms(torch, run, reps), "plain_ms": plain_ms,
+               # the limbs read once, the digests written once
+               **bound(ELEM_BYTES * n_cols * n_rows + 32 * n_rows,
+                       per_perm * keccak_blocks(n_cols) * n_rows)}
+        log(f"[keccak] keccak_rows at {rec['shape']} ({keccak_blocks(n_cols)} "
+            f"blocks a row): max_abs_err {err}; {rec['ms']:.4f} ms kernel, "
+            f"{plain_ms:.4f} ms plain, {bound_text(rec)}")
+        require(err == 0, f"keccak_rows disagrees with its plain version at "
+                f"{rec['shape']}")
+        return rec
+
+    rows = []
+    big = random_columns(torch, HINTS_COLS, lde, dev)
+    for n_cols in (HINTS_COLS, HINTS_MAIN_COLS, CAIRO_MAIN_COLS,
+                   CAIRO_AUX_COLS):
+        x = big[:, :n_cols].contiguous()  # _row_leaves' (16, c, n) layout
+        rows.append(rows_record(
+            x, ck.keccak_rows(x),
+            lambda: kd.hash_felt_rows_plain(x.permute(0, 2, 1), n_cols),
+            n_cols, lde, lambda: ck.keccak_rows(x), 5))
+        del x
+    # the composition: round 2 stacks its two halves as (16, n, 2)
+    halves = torch.stack([big[:, 0], big[:, 1]], dim=2)
+    rows.append(rows_record(
+        halves, kd.hash_felt_rows(halves, 2),
+        lambda: kd.hash_felt_rows_plain(halves, 2), 2, lde,
+        lambda: kd.hash_felt_rows(halves, 2), 20))
+    del halves
+    # the FRI layers' single-felt leaves
+    for n in (lde, lde // 2):
+        col = big[:, 2, :n].contiguous()
+        rows.append(rows_record(
+            col, kd.hash_felt_leaves(col),
+            lambda: kd.hash_felt_rows_plain(col[:, :, None], 1), 1, n,
+            lambda: kd.hash_felt_leaves(col), 20))
+    del big
+
+    # K2: every level of a tree over 2^21 leaves, and one pair (the draw)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    leaves = torch.randint(-2**31, 2**31 - 1, (lde, 8), dtype=torch.int32,
+                           device=dev, generator=gen).view(torch.int64)
+    levels = tree_levels(leaves)
+    cur, level_ms = leaves, []
+    for got in levels[1:]:
+        want, t = timed(torch, lambda: kd.hash_digest_pairs_plain(cur))
+        level_ms.append(t)
+        errs["keccak_pairs"] = max(errs["keccak_pairs"],
+                                   digest_err(torch, got, want))
+        cur = want
+    log(f"[keccak] keccak_pairs at every level of a tree over {lde} leaves "
+        f"({len(levels) - 1} launches, {lde} digests down to 2): max_abs_err "
+        f"{errs['keccak_pairs']}")
+    require(errs["keccak_pairs"] == 0, "keccak_pairs disagrees with its "
+            "plain version")
+    k = lde // 2
+    pairs = {"shape": shape_text(leaves),
+             "ms": cuda_ms(torch, lambda: ck.keccak_pairs(leaves), 20),
+             "plain_ms": level_ms[0],
+             # the digests read once, the parents written once
+             **bound(32 * lde + 32 * k, per_perm * k),
+             "draw": {"shape": "(2, 4)",
+                      "ms": cuda_ms(torch, lambda: ck.keccak_pairs(leaves[:2]), 50),
+                      "plain_ms": level_ms[-1],
+                      **bound(64 + 32, per_perm)}}
+    for tag, r in (("", pairs), (" (one pair)", pairs["draw"])):
+        log(f"[keccak] keccak_pairs at {r['shape']}{tag}: {r['ms']:.4f} ms "
+            f"kernel, {r['plain_ms']:.4f} ms plain, {bound_text(r)}")
+    del leaves, levels, cur
+
+    # K3: batches of 2^20 nonces, a hit inside each of two, none in a third
+    size = 1 << 20
+    challenge = bytes(np.random.default_rng(SEED).integers(0, 256, 32,
+                                                           dtype=np.uint8))
+    for start, factor in ((0, 16), ((1 << 40) + 7, 16), (0, 40)):
+        found, first = kd.grinding_batch(challenge, start, size, factor, dev)
+        p_found, p_first = kd.grinding_batch_plain(challenge, start, size,
+                                                   factor, dev)
+        got = (bool(found), int(first))
+        ok = got == (bool(p_found), int(p_first))
+        if got[0]:
+            ok = ok and leading_zeros_of_nonce(
+                challenge, start + got[1]) >= factor and all(
+                leading_zeros_of_nonce(challenge, start + i) < factor
+                for i in range(got[1]))
+        else:
+            ok = ok and got[1] == size and factor > 30
+        log(f"[keccak] keccak_grind at start {start}, {size} nonces, factor "
+            f"{factor}: (found, first) {got}, equal to the plain version's "
+            f"and to the host check: {ok}")
+        errs["keccak_grind"] = max(errs["keccak_grind"], int(not ok))
+        require(ok, "keccak_grind disagrees with its plain version or the host")
+    factor = BENCH["grinding_factor"]
+    grind = {"shape": f"{size} nonces, factor {factor}",
+             "ms": cuda_ms(torch, lambda: ck.keccak_grind(
+                 (1, 2, 3, 4), 0, size, factor, dev), 20),
+             "plain_ms": timed(torch, lambda: kd.grinding_batch_plain(
+                 challenge, 0, size, factor, dev))[1],
+             # the result written once; one permutation a nonce
+             **bound(8, per_perm * size)}
+    log(f"[keccak] keccak_grind at {grind['shape']}: {grind['ms']:.4f} ms "
+        f"kernel, {grind['plain_ms']:.4f} ms plain, {bound_text(grind)}")
+
+    # the kernels line: K1 at the hinted run's 43 main columns (its
+    # launches are that run's), every shape under by_shape
+    main = next(r for r in rows if f", {HINTS_MAIN_COLS}, " in r["shape"])
+    out = {"keccak_rows": {**{k: v for k, v in main.items()
+                              if k != "max_abs_err"}, "by_shape": rows},
+           "keccak_pairs": pairs, "keccak_grind": grind}
+    for name, rec in out.items():
+        rec["max_abs_err"] = errs[name]
+        # no PyTorch call computes Keccak: no library time
+        rec["library_ms"] = None
+        rec["build"] = facts[f"{name}_kernel"]
+        rec["ops_per_permutation"] = per_perm
+    return out
+
+
 def _fib(log_n: int, bench: bool, dev, verify_it: bool = True):
     from lambdaworks_cairo_prover_tpu_torch.air.examples.simple_fibonacci import (
         FibonacciAIR, FibonacciPublicInputs, fibonacci_trace)
@@ -669,11 +926,14 @@ def phase_fixtures(dev) -> None:
 
 def kernel_wrappers() -> dict:
     from lambdaworks_cairo_prover_tpu_torch.field import cuda_field as cf
+    from lambdaworks_cairo_prover_tpu_torch.hash import cuda_keccak as ck
     from lambdaworks_cairo_prover_tpu_torch.ntt import cuda_ntt as cn
 
     return {"mont_mul": cf.mont_mul, "add_sub_mod": cf.add_sub_mod,
             "ntt_dif_stages": cn.ntt_dif_stages,
-            "ntt_dif_local": cn.ntt_dif_local}
+            "ntt_dif_local": cn.ntt_dif_local,
+            "keccak_rows": ck.keccak_rows, "keccak_pairs": ck.keccak_pairs,
+            "keccak_grind": ck.keccak_grind}
 
 
 def reset_counts(torch) -> None:
@@ -1139,6 +1399,7 @@ from lambdaworks_cairo_prover_tpu_torch.air.examples.simple_fibonacci import (
     FibonacciAIR, FibonacciPublicInputs, fibonacci_trace)
 from lambdaworks_cairo_prover_tpu_torch.field import cuda_field as cf
 from lambdaworks_cairo_prover_tpu_torch.field.params import P
+from lambdaworks_cairo_prover_tpu_torch.hash import cuda_keccak as ck
 from lambdaworks_cairo_prover_tpu_torch.ntt import cuda_ntt as cn
 from lambdaworks_cairo_prover_tpu_torch.proof.options import ProofOptions
 from lambdaworks_cairo_prover_tpu_torch.proof.serde import serialize_proof
@@ -1158,14 +1419,26 @@ print("TOY=" + json.dumps({
     "launches": {"mont_mul": cf.mont_mul.launches,
                  "add_sub_mod": cf.add_sub_mod.launches,
                  "ntt_dif_stages": cn.ntt_dif_stages.launches,
-                 "ntt_dif_local": cn.ntt_dif_local.launches}}))
+                 "ntt_dif_local": cn.ntt_dif_local.launches,
+                 "keccak_rows": ck.keccak_rows.launches,
+                 "keccak_pairs": ck.keccak_pairs.launches,
+                 "keccak_grind": ck.keccak_grind.launches}}))
 """
+
+
+# the toy field's launches: H1-H4 bake the Stark252 prime and refuse
+# GF(257); Keccak does not depend on the field (16 limbs a felt there too),
+# so K1 and K2 hash its trees; grinding factor 1 searches on the host
+TOY_LAUNCHES = {"mont_mul": False, "add_sub_mod": False,
+                "ntt_dif_stages": False, "ntt_dif_local": False,
+                "keccak_rows": True, "keccak_pairs": True,
+                "keccak_grind": False}
 
 
 def phase_toy_field() -> None:
     """simple_fibonacci over GF(257) on the card in a child process (the
     field is fixed at import): the JAX package's proof bytes, verified, no
-    H1-H4 launch."""
+    H1-H4 launch, K1 and K2 launched (TOY_LAUNCHES)."""
     env = dict(os.environ)
     env["LCP_FIELD"] = "f257"
     t0 = time.perf_counter()
@@ -1191,8 +1464,9 @@ def phase_toy_field() -> None:
     require(data == ref, "the GF(257) proof differs from the JAX package's")
     require(out["verified"] and not out["wrong_pub_verified"],
             "the GF(257) proof did not verify, or wrong inputs did")
-    require(not any(out["launches"].values()),
-            "a Stark252 kernel was launched over GF(257)")
+    require({k: v > 0 for k, v in out["launches"].items()} == TOY_LAUNCHES,
+            f"over GF(257) the launches {out['launches']} are not "
+            f"{TOY_LAUNCHES} (launched or not)")
 
 
 def phase_cli(dev) -> None:
@@ -1234,6 +1508,7 @@ from lambdaworks_cairo_prover_tpu_torch.cairo.air import (
     generate_cairo_proof, verify_cairo_proof)
 from lambdaworks_cairo_prover_tpu_torch.cairo.runner import generate_prover_args
 from lambdaworks_cairo_prover_tpu_torch.field import cuda_field as cf
+from lambdaworks_cairo_prover_tpu_torch.hash import cuda_keccak as ck
 from lambdaworks_cairo_prover_tpu_torch.ntt import cuda_ntt as cn
 from lambdaworks_cairo_prover_tpu_torch.parallel.sharding import make_mesh
 from lambdaworks_cairo_prover_tpu_torch.proof.options import ProofOptions
@@ -1247,7 +1522,8 @@ torch.cuda.set_device(dev)
 dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
                         world_size=world, timeout=datetime.timedelta(seconds=600))
 mesh = make_mesh(world)
-wrappers = (cf.mont_mul, cf.add_sub_mod, cn.ntt_dif_stages, cn.ntt_dif_local)
+wrappers = (cf.mont_mul, cf.add_sub_mod, cn.ntt_dif_stages, cn.ntt_dif_local,
+            ck.keccak_rows, ck.keccak_pairs, ck.keccak_grind)
 
 
 def counted(fn):
@@ -1451,10 +1727,19 @@ def phase_parallel(torch, dev) -> dict:
             require(got["sha256"] == want and got["verified"],
                     f"[parallel] rank {res['rank']}: the sharded {name} proof "
                     f"differs from the JAX package's or does not verify")
-            n_ntt = (got["launches"]["ntt_dif_stages"]
-                     + got["launches"]["ntt_dif_local"])
-            require(got["launches"]["mont_mul"] > 0 and n_ntt > 0,
+            counts = got["launches"]
+            n_ntt = counts["ntt_dif_stages"] + counts["ntt_dif_local"]
+            require(counts["mont_mul"] > 0 and n_ntt > 0,
                     f"[parallel] rank {res['rank']}: no H1 or no H3/H4 launch")
+            # every rank hashes its block's leaves and nodes; grinding runs
+            # on the card above factor 12 (the bench options' 20), on the
+            # host for the test options' 1
+            grinds = name == "simple_fibonacci"
+            require(counts["keccak_rows"] > 0 and counts["keccak_pairs"] > 0
+                    and (counts["keccak_grind"] > 0) == grinds,
+                    f"[parallel] rank {res['rank']}, {name}: Keccak launches "
+                    f"{counts}, expected K1 and K2"
+                    f"{' and K3' if grinds else ' and no K3'}")
     log(f"[parallel] {PARALLEL_RANKS} gloo ranks on one card: "
         f"{time.perf_counter() - t0:.1f} s with the processes' start")
     return {"launches": launches, "four_step": four_step_kernels(torch, dev)}
@@ -1469,6 +1754,13 @@ SOURCES = {
                       "lambdaworks_cairo_prover_tpu/ntt/fused.py:164"),
     "ntt_dif_local": ("lambdaworks_cairo_prover_tpu_torch/csrc/ntt.cu",
                       "lambdaworks_cairo_prover_tpu/ntt/fused.py:200"),
+    # not Pallas: jnp under jax.jit (_keccak_f :93, _absorb_words :110)
+    "keccak_rows": ("lambdaworks_cairo_prover_tpu_torch/csrc/keccak.cu",
+                    "lambdaworks_cairo_prover_tpu/hash/keccak_device.py:166"),
+    "keccak_pairs": ("lambdaworks_cairo_prover_tpu_torch/csrc/keccak.cu",
+                     "lambdaworks_cairo_prover_tpu/hash/keccak_device.py:196"),
+    "keccak_grind": ("lambdaworks_cairo_prover_tpu_torch/csrc/keccak.cu",
+                     "lambdaworks_cairo_prover_tpu/hash/keccak_device.py:237"),
 }
 
 
@@ -1499,6 +1791,7 @@ def main() -> int:
         phase_card(torch)
         phase(phase_build)
         kern = phase(phase_kernels, torch, dev)
+        kern.update(phase(phase_keccak, torch, dev))
         phase(phase_fixtures, dev)
         launches_fib = phase(phase_full, torch, dev)
         phase(phase_cairo_fixture, dev)

@@ -1,8 +1,9 @@
 """Build and load the port's hand-written CUDA kernels.
 
 The sources under ``csrc/`` are compiled at first use, with ``nvcc`` for
-Hopper (``sm_90a``), into one shared library with a plain C interface that
-is loaded with ctypes.  The library goes into ``_build/`` inside the package
+Hopper (``sm_90a``), one process a source, all started together, and linked
+into one shared library with a plain C interface that is loaded with
+ctypes.  The library goes into ``_build/`` inside the package
 (listed in ``.gitignore``) under a name derived from the sources and flags,
 so an edited source is rebuilt and a built one is reused.  Nothing is built
 when this module is imported: :func:`library` builds on its first call,
@@ -26,19 +27,23 @@ import time
 PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
-SOURCES = ("field_ops.cu", "ntt.cu")
+SOURCES = ("field_ops.cu", "ntt.cu", "keccak.cu")
 HEADERS = ("field.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _I = ctypes.c_int
+_U64 = ctypes.c_ulonglong
 _SIGNATURES = {
     "lcp_mont_mul": [_P, _LL, _LL, _LL, _P, _LL, _LL, _LL, _P, _LL, _P],
     "lcp_add_sub": [_I, _P, _LL, _LL, _LL, _P, _LL, _LL, _LL, _P, _LL, _P],
     "lcp_ntt_dif_stages": [_P, _P, _LL, _I, _I, _I, _P, _P],
     "lcp_ntt_dif_local": [_P, _P, _LL, _I, _I, _I, _P, _P],
+    "lcp_keccak_rows": [_P, _LL, _LL, _LL, _I, _LL, _P, _P],
+    "lcp_keccak_pairs": [_P, _LL, _P, _P],
+    "lcp_keccak_grind": [_U64, _U64, _U64, _U64, _U64, _LL, _U64, _P, _P],
 }
 
 
@@ -85,14 +90,30 @@ def build() -> dict:
         log = open(log_path).read() if os.path.exists(log_path) else ""
         return {"path": so_path, "compiled": False, "seconds": 0.0, "log": log}
     tmp = f"{so_path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", CSRC_DIR, "-o", tmp,
-           *[os.path.join(CSRC_DIR, s) for s in SOURCES]]
+    nvcc = _nvcc()
+    objs = [f"{tmp}.{name}.o" for name in SOURCES]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen(
+        [nvcc, *NVCC_FLAGS, "-I", CSRC_DIR, "-c", "-o", obj,
+         os.path.join(CSRC_DIR, name)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for name, obj in zip(SOURCES, objs)]
+    outs = [p.communicate()[0] for p in procs]
+    log = "".join(outs)
+    failed = [(name, p.returncode) for name, p in zip(SOURCES, procs)
+              if p.returncode != 0]
+    if not failed:
+        link = subprocess.run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o", tmp,
+                               *objs], capture_output=True, text=True)
+        log += link.stdout + link.stderr
+        if link.returncode != 0:
+            failed.append(("link", link.returncode))
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise KernelCompileError(f"nvcc failed ({proc.returncode}):\n{log}")
+    if failed:
+        raise KernelCompileError(f"nvcc failed {failed}:\n{log}")
     with open(log_path, "w") as f:
         f.write(log)
     os.replace(tmp, so_path)

@@ -1,6 +1,11 @@
-"""Batched Keccak-256 in plain PyTorch: keccak-f[1600] over a batch of
-messages at once (Merkle leaves and nodes, grinding nonces).
+"""Batched Keccak-256: Merkle leaves and nodes, grinding nonces.
 
+The public functions take CUDA tensors (or a CUDA device) to the Keccak
+kernels of :mod:`.cuda_keccak` (K1 ``keccak_rows``, K2 ``keccak_pairs``, K3
+``keccak_grind``) and CPU ones to their plain versions here (``*_plain``),
+which the tests and the chip check hold the kernels against.
+
+The plain versions run keccak-f[1600] over a batch of messages at once.
 The state is a (25, n) int64 tensor, one row per 64-bit lane (lane x + 5y),
 each round a few whole-state ops: theta and chi as rolls over a (5, 5, n)
 view, rho as one per-lane shift, pi as one row gather.  int64 is
@@ -9,8 +14,7 @@ a logical right shift masks after the arithmetic one.
 
 Digests are (n, 4) int64 tensors: lane j of the final state, i.e. digest
 bytes 8j..8j+8 little-endian (the JAX package keeps the same bytes as (n, 8)
-uint32 words).  This is not yet a CUDA kernel: on a CUDA tensor the ops run
-as PyTorch's own kernels.
+uint32 words).
 """
 
 from __future__ import annotations
@@ -18,7 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..field.params import N_LIMBS
+from . import cuda_keccak as ck
 
 _RC = [
     0x0000000000000001, 0x0000000000008082, 0x800000000000808A, 0x8000000080008000,
@@ -39,11 +43,12 @@ _ROT = [
 
 _RATE_LANES = 17  # 136 bytes
 _MAX_POS = (1 << 63) - 1
-_LEAF_CHUNK_FELTS = 1 << 23  # felts hashed per pass of hash_felt_rows
-# messages absorbed per pass: the state and the temporaries of a round take
-# some 2 KB a message, 16 GiB for the 2^23 single-felt leaves of a 2^21-row
-# trace's first FRI layer in one pass
-_ABSORB_CHUNK = 1 << 21
+# the plain versions' passes: the state and the temporaries of a round take
+# some 2 KB a message (16 GiB for the 2^23 single-felt leaves of a 2^21-row
+# trace's first FRI layer in one pass), the byte expansion of a row some 40
+# int64 words a felt
+_LEAF_CHUNK_FELTS = 1 << 23  # felts hashed per pass of hash_felt_rows_plain
+_ABSORB_CHUNK = 1 << 21  # messages absorbed per pass
 
 
 def _signed(v: int) -> int:
@@ -68,7 +73,7 @@ def _shr(x: torch.Tensor, k) -> torch.Tensor:
 _perm_cache: dict = {}  # device -> (rho, 64 - rho, pi source rows)
 
 
-def perm_tables(dev: torch.device) -> tuple:
+def _perm_tables(dev: torch.device) -> tuple:
     """The rho amounts and pi rows on ``dev``, copied there once (a copy
     in every call would wait for the device each time)."""
     if dev not in _perm_cache:
@@ -80,7 +85,7 @@ def perm_tables(dev: torch.device) -> tuple:
 
 def _keccak_f(state: torch.Tensor) -> torch.Tensor:
     """keccak-f[1600] on a (25, n) int64 state."""
-    rho, rho_r, pi_src = perm_tables(state.device)
+    rho, rho_r, pi_src = _perm_tables(state.device)
     a = state
     for rc in _RC_I64:
         a5 = a.reshape(5, 5, -1)  # [y][x]
@@ -139,10 +144,20 @@ def hash_felt_rows(limbs: torch.Tensor, n_cols: int) -> torch.Tensor:
 
     lambdaworks `BatchKeccak256Tree` leaf hashing: Keccak256 of the
     concatenated 32-byte BE encodings of the row's (non-Montgomery)
-    elements."""
+    elements.  A CUDA tensor goes to K1 as the (16, n_cols, n_rows) view
+    of the same storage, whatever its strides."""
+    if limbs.device.type == "cpu":
+        return hash_felt_rows_plain(limbs, n_cols)
+    if limbs.dim() != 3 or limbs.shape[2] != n_cols:
+        raise ValueError(f"hash_felt_rows: expected (16, n_rows, {n_cols}) "
+                         f"limbs, got shape {tuple(limbs.shape)}")
+    return ck.keccak_rows(limbs.transpose(1, 2))
+
+
+def hash_felt_rows_plain(limbs: torch.Tensor, n_cols: int) -> torch.Tensor:
+    """K1's plain version: :func:`hash_felt_rows` in whole-state ops, rows in
+    passes of about 2^23 felts (values do not depend on the pass)."""
     n_rows = limbs.shape[1]
-    # the byte expansion takes some 40 int64 words per felt: go through the
-    # rows in chunks of about 2^23 felts (values do not depend on the chunk)
     step = max(1, _LEAF_CHUNK_FELTS // max(n_cols, 1))
     out = []
     for r0 in range(0, n_rows, step):
@@ -159,6 +174,13 @@ def hash_felt_leaves(limbs: torch.Tensor) -> torch.Tensor:
 
 def hash_digest_pairs(digests: torch.Tensor) -> torch.Tensor:
     """Parent nodes: (2k, 4) -> (k, 4), Keccak256(left || right)."""
+    if digests.device.type == "cpu":
+        return hash_digest_pairs_plain(digests)
+    return ck.keccak_pairs(digests)
+
+
+def hash_digest_pairs_plain(digests: torch.Tensor) -> torch.Tensor:
+    """K2's plain version of :func:`hash_digest_pairs`."""
     k = digests.shape[0] // 2
     msg = digests.reshape(k, 8).contiguous().view(torch.uint8)  # (k, 64)
     return _absorb(_pad_bytes(msg))
@@ -190,8 +212,19 @@ def grinding_batch(challenge: bytes, start: int, size: int,
 
     Message = challenge || nonce_le_u64 (40 bytes; reference grinding.rs:21-28);
     condition: trailing_zeros(first 8 digest bytes read as BE u64) >= factor.
-    Returns (found, index in the batch of the first hit) as 0-d tensors,
-    without waiting for the device."""
+    Returns (found, index in the batch of the first hit, else ``size``) as
+    0-d tensors, without waiting for the device."""
+    if torch.device(device).type == "cpu":
+        return grinding_batch_plain(challenge, start, size, grinding_factor,
+                                    device)
+    lanes = np.frombuffer(challenge, dtype="<u8")
+    return ck.keccak_grind(lanes.tolist(), start, size, grinding_factor,
+                           device)
+
+
+def grinding_batch_plain(challenge: bytes, start: int, size: int,
+                         grinding_factor: int, device):
+    """K3's plain version of :func:`grinding_batch`."""
     if start < 0 or start + size > 1 << 63:
         raise ValueError("nonce batch outside [0, 2^63)")
     words = np.frombuffer(challenge, dtype="<i8")
@@ -202,13 +235,7 @@ def grinding_batch(challenge: bytes, start: int, size: int,
     lanes[:, 5] = 0x01  # byte 40
     lanes[:, 16] = _signed(0x80 << 56)  # byte 135
     lane0 = _absorb(lanes)[:, 0]
-    # head = BE u64 of digest bytes 0..7: its bit 8i+k is bit 8(7-i)+k of
-    # lane 0 (LE), so "low f bits of head are 0" is a mask test on lane 0
-    mask = 0
-    for bit in range(min(grinding_factor, 64)):
-        i, k = divmod(bit, 8)
-        mask |= 1 << (8 * (7 - i) + k)
-    ok = (lane0 & _signed(mask)) == 0
+    ok = (lane0 & _signed(ck.lane0_mask(grinding_factor))) == 0
     idx = torch.arange(size, dtype=torch.int64, device=device)
     first = torch.where(ok, idx, torch.full_like(idx, size)).min()
     return first < size, first

@@ -285,7 +285,6 @@ class ShardedProverKernels(ProverKernels):
             self.sntt.powers(off, n >> k)
         fd.constant(1, mont=False, device=self.device)
         fd.constant(R2, mont=False, device=self.device)
-        kd.perm_tables(self.device)
 
 
 class ColumnShardedProverKernels(ProverKernels):

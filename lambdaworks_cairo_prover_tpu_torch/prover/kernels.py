@@ -452,9 +452,10 @@ class ProverKernels:
 
     def _chain_tables(self, coeffs: torch.Tensor, plan) -> None:
         """Build every table the chain reads (offset powers, twiddles, field
-        constants, Keccak's permutation) on the device of ``coeffs``, so
-        that queueing the chain copies nothing from the host and so never
-        waits for the device."""
+        constants) on the device of ``coeffs``, so that queueing the chain
+        copies nothing from the host and so never waits for the device.
+        Keccak needs none: K1 and K2 take their constants from the kernel,
+        and the plain version's tables serve CPU tensors only."""
         dev, domain, n_coeffs = coeffs.device, self.domain, coeffs.shape[-1]
         nttc.offset_powers(domain.coset_offset, n_coeffs, dev)
         for k, (off, _) in enumerate(plan, start=1):
@@ -464,7 +465,6 @@ class ProverKernels:
                                     dev)
         fd.constant(1, mont=False, device=dev)
         fd.constant(R2, mont=False, device=dev)
-        kd.perm_tables(dev)
 
     def fri_commit_chain(self, coeffs, state, plan, final_fold=False):
         """The device part of the FRI commit phase, queued without a host

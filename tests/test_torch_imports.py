@@ -12,6 +12,7 @@ import torch
 from lambdaworks_cairo_prover_tpu_torch import cuda_lib
 from lambdaworks_cairo_prover_tpu_torch.field import cuda_field as cf
 from lambdaworks_cairo_prover_tpu_torch.field import device as tfd
+from lambdaworks_cairo_prover_tpu_torch.hash import cuda_keccak as ck
 from lambdaworks_cairo_prover_tpu_torch.ntt import core as tnttc
 from lambdaworks_cairo_prover_tpu_torch.ntt import cuda_ntt as cn
 
@@ -63,15 +64,23 @@ def _packed(n):
     lambda: cf.add_sub_mod(_limbs(8), _limbs(8), "sub"),
     lambda: cn.ntt_dif_stages(_limbs(1, 16), _limbs(1, 16), _packed(16), 3, 2),
     lambda: cn.ntt_dif_local(_limbs(1, 16), _limbs(1, 16), _packed(16), 4, True),
-], ids=["mont_mul", "add", "sub", "ntt_dif_stages", "ntt_dif_local"])
+    lambda: ck.keccak_rows(_limbs(3, 8)),
+    lambda: ck.keccak_pairs(torch.zeros((8, 4), dtype=torch.int64)),
+    lambda: ck.keccak_grind((1, 2, 3, 4), 0, 64, 3, "cpu"),
+], ids=["mont_mul", "add", "sub", "ntt_dif_stages", "ntt_dif_local",
+        "keccak_rows", "keccak_pairs", "keccak_grind"])
 def test_cuda_launchers_refuse_cpu_tensors(launch):
-    counts = (cf.mont_mul.launches, cf.add_sub_mod.launches,
-              cn.ntt_dif_stages.launches, cn.ntt_dif_local.launches)
+    counts = _launch_counts()
     with pytest.raises(ValueError, match="CUDA tensors"):
         launch()
     assert "lib" not in cuda_lib._state  # nothing was built or loaded
-    assert counts == (cf.mont_mul.launches, cf.add_sub_mod.launches,
-                      cn.ntt_dif_stages.launches, cn.ntt_dif_local.launches)
+    assert counts == _launch_counts()
+
+
+def _launch_counts() -> tuple:
+    return tuple(w.launches for w in (
+        cf.mont_mul, cf.add_sub_mod, cn.ntt_dif_stages, cn.ntt_dif_local,
+        ck.keccak_rows, ck.keccak_pairs, ck.keccak_grind))
 
 
 def test_public_ops_take_the_plain_path_on_cpu():

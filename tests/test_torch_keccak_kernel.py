@@ -1,0 +1,195 @@
+"""The Keccak-256 kernels' plain versions (K1 ``hash_felt_rows_plain``, K2
+``hash_digest_pairs_plain``, K3 ``grinding_batch_plain``) against the JAX
+package, and the message layout that K1 forms in registers.
+
+The same inputs, made from a seed with numpy, go through the JAX package's
+jitted Keccak and the port's plain version on the CPU; digests are compared
+as their 32 bytes (tolerance 0).  The kernels themselves run only on the
+card, where ``chip_smoke.py`` holds them against these plain versions bit
+for bit; here the launchers must refuse CPU tensors and the public
+functions must take the plain route."""
+
+import os
+import re
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from lambdaworks_cairo_prover_tpu.hash import keccak_device as jkd
+from lambdaworks_cairo_prover_tpu_torch import cuda_lib
+from lambdaworks_cairo_prover_tpu_torch.hash import cuda_keccak as ck
+from lambdaworks_cairo_prover_tpu_torch.hash import keccak_device as tkd
+from lambdaworks_cairo_prover_tpu_torch.interop import limbs_from_numpy
+from lambdaworks_cairo_prover_tpu_torch.prover.grinding import (
+    leading_zeros_of_nonce)
+
+from test_torch_field import rand_limbs
+
+torch.set_num_threads(1)
+
+ROWS = 7  # the JAX package pads fewer than 128 rows itself
+
+
+def jax_bytes(digests) -> bytes:
+    return np.asarray(digests, dtype="<u4").tobytes()
+
+
+def port_bytes(digests: torch.Tensor) -> bytes:
+    return digests.numpy().astype("<i8").tobytes()
+
+
+def felt_lanes(limbs: torch.Tensor) -> torch.Tensor:
+    """(16, ...) canonical limbs -> (..., 4) int64: the four Keccak lanes of
+    each felt's 32-byte big-endian encoding, by K1's formula
+    (csrc/keccak.cu:felt_lane): lane k holds limbs 15-4k .. 12-4k, each with
+    its two bytes swapped, limb 15-4k in the low 16 bits."""
+    x = limbs.to(torch.int64)
+    swapped = ((x & 0xFF) << 8) | ((x >> 8) & 0xFF)
+    lanes = []
+    for k in range(4):
+        top = 15 - 4 * k
+        lane = swapped[top]
+        for t in range(1, 4):
+            lane = lane | (swapped[top - t] << (16 * t))  # the last shift wraps
+        lanes.append(lane)
+    return torch.stack(lanes, dim=-1)
+
+
+def kernel_message(cols: torch.Tensor) -> torch.Tensor:
+    """(16, c, n) limbs -> (n, 17 * blocks) int64: the padded message as K1
+    absorbs it, block by block: lane i of block b is message lane 17b + i
+    (felt (17b + i) // 4, its lane (17b + i) % 4), 0x01 in the lane after
+    the message, the top bit of the last block's lane 16 set."""
+    lanes = felt_lanes(cols)  # (c, n, 4)
+    n_cols, n_rows = cols.shape[1], cols.shape[2]
+    msg = lanes.permute(1, 0, 2).reshape(n_rows, 4 * n_cols)
+    n_lanes = 4 * n_cols
+    n_blocks = n_lanes // 17 + 1
+    out = torch.zeros((n_rows, 17 * n_blocks), dtype=torch.int64)
+    for blk in range(n_blocks):
+        for i in range(17):
+            m = 17 * blk + i
+            v = msg[:, m] if m < n_lanes else torch.zeros(n_rows, dtype=torch.int64)
+            if m == n_lanes:
+                v = v ^ 0x01
+            if i == 16 and blk == n_blocks - 1:
+                v = v ^ tkd._signed(0x80 << 56)
+            out[:, m] = v
+    return out
+
+
+@pytest.mark.parametrize("n_cols", [1, 2, 17, 18, 34, 61])
+def test_row_leaves_match_jax(n_cols):
+    """Rows of 17 and 34 felts end on a block (the padding fills a block of
+    its own); 1, 2, 18 and 61 end inside one."""
+    cols = limbs_from_numpy(rand_limbs(90 + n_cols, (n_cols, ROWS)), "cpu")
+    rows = cols.permute(0, 2, 1)  # _row_leaves' view: (16, n_rows, n_cols)
+    want = jax_bytes(jkd.hash_felt_rows(
+        jnp.asarray(rows.contiguous().numpy().astype(np.uint32)), n_cols))
+    plain = tkd.hash_felt_rows_plain(rows, n_cols)
+    assert port_bytes(plain) == want
+    assert torch.equal(tkd.hash_felt_rows(rows, n_cols), plain)
+    assert torch.equal(tkd._absorb(kernel_message(cols)), plain)
+
+
+def test_felt_lanes_are_the_big_endian_encoding():
+    """K1's lane formula (limbs -> 4 lanes a felt) against the byte
+    expansion of the plain version, on canonical felts with the edges and on
+    limbs of every bit pattern at the byte boundaries."""
+    rng = np.random.default_rng(95)
+    canonical = rand_limbs(96, (5, 64))
+    patterns = rng.choice(np.array([0, 1, 0x7F, 0x80, 0xFF, 0x100, 0x7FFF,
+                                    0x8000, 0xFF00, 0xFFFF], dtype=np.uint32),
+                          size=(16, 64))
+    for arr in (canonical, patterns):
+        limbs = limbs_from_numpy(arr, "cpu")
+        assert torch.equal(felt_lanes(limbs),
+                           tkd.felts_to_be_bytes(limbs).view(torch.int64))
+
+
+@pytest.mark.parametrize("k", [1, 1024])
+def test_parent_nodes_match_jax(k):
+    rng = np.random.default_rng(97 + k)
+    words = rng.integers(0, 1 << 32, size=(2 * k, 8), dtype=np.uint32)
+    digests = torch.from_numpy(words.view("<i8").copy())
+    got = tkd.hash_digest_pairs_plain(digests)
+    assert port_bytes(got) == jax_bytes(jkd.hash_digest_pairs(jnp.asarray(words)))
+    assert torch.equal(tkd.hash_digest_pairs(digests), got)
+
+
+@pytest.mark.parametrize("factor, start", [(30, 5), (8, 1 << 40)])
+def test_grinding_batch_matches_jax(factor, start):
+    """A batch with no hit (factor 30 over 4,096 nonces) and one whose first
+    hit lies inside it, past index 0; the hit agrees with the host check."""
+    challenge = bytes(np.random.default_rng(99).integers(0, 256, 32,
+                                                         dtype=np.uint8))
+    size = 4096
+    j_found, j_first = jkd.grinding_batch(
+        jnp.asarray(np.frombuffer(challenge, dtype="<u4").copy()),
+        jnp.uint32(start & 0xFFFFFFFF), jnp.uint32(start >> 32), size, factor)
+    found, first = tkd.grinding_batch_plain(challenge, start, size, factor,
+                                            "cpu")
+    assert bool(found) == bool(j_found)
+    assert [int(t) for t in tkd.grinding_batch(challenge, start, size, factor,
+                                               "cpu")] == [int(found), int(first)]
+    if factor == 30:
+        assert not bool(found) and int(first) == size
+        return
+    assert bool(found) and int(first) == int(j_first) > 0
+    assert leading_zeros_of_nonce(challenge, start + int(first)) >= factor
+    assert all(leading_zeros_of_nonce(challenge, start + i) < factor
+               for i in range(int(first)))
+
+
+def test_lane0_mask_is_the_trailing_zero_test():
+    """The mask that K3 and its plain version test digest lane 0 with:
+    lane 0 & mask == 0 exactly when the BE-read head of the digest has
+    ``factor`` trailing zeros."""
+    rng = np.random.default_rng(100)
+    for factor in (0, 1, 7, 8, 9, 20, 64):
+        mask = ck.lane0_mask(factor)
+        for lane in [0, (1 << 64) - 1, *rng.integers(0, 1 << 63, 200,
+                                                      dtype=np.int64).tolist()]:
+            head = int.from_bytes(lane.to_bytes(8, "little"), "big")
+            zeros = 64 if head == 0 else (head & -head).bit_length() - 1
+            assert ((lane & mask) == 0) == (zeros >= factor)
+
+
+def test_every_signature_has_an_extern_c_definition():
+    """Each entry point that cuda_lib binds is defined with C linkage in
+    csrc/, with as many parameters as its ctypes signature."""
+    defined = {}
+    for name in cuda_lib.SOURCES:
+        with open(os.path.join(cuda_lib.CSRC_DIR, name)) as f:
+            text = f.read()
+        start = text.index('extern "C" {')
+        for m in re.finditer(r"^int (lcp_\w+)\(([^)]*)\)", text[start:], re.M):
+            defined[m.group(1)] = len(m.group(2).split(","))
+    assert set(cuda_lib._SIGNATURES) <= set(defined)
+    for name, argtypes in cuda_lib._SIGNATURES.items():
+        assert defined[name] == len(argtypes), name
+    assert "keccak.cu" in cuda_lib.SOURCES
+
+
+def test_public_keccak_takes_the_plain_path_on_cpu_and_the_kernel_elsewhere():
+    counts = (ck.keccak_rows.launches, ck.keccak_pairs.launches,
+              ck.keccak_grind.launches)
+    limbs = limbs_from_numpy(rand_limbs(101, (9,)), "cpu")
+    leaves = tkd.hash_felt_leaves(limbs)
+    assert torch.equal(leaves, tkd.hash_felt_rows_plain(limbs[:, :, None], 1))
+    tkd.hash_digest_pairs(leaves[:8])
+    tkd.grinding_batch(b"\x05" * 32, 0, 64, 3, torch.device("cpu"))
+    assert counts == (ck.keccak_rows.launches, ck.keccak_pairs.launches,
+                      ck.keccak_grind.launches)
+    assert "lib" not in cuda_lib._state
+    # any other device goes to the kernels, which take CUDA only
+    meta = torch.empty((16, 4, 2), dtype=torch.int32, device="meta")
+    for call in (lambda: tkd.hash_felt_rows(meta, 2),
+                 lambda: tkd.hash_digest_pairs(meta[0, :, :].long().reshape(2, 4)),
+                 lambda: tkd.grinding_batch(b"\x05" * 32, 0, 64, 3, "meta")):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            call()
+    assert "lib" not in cuda_lib._state

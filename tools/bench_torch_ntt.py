@@ -23,9 +23,7 @@ first held against its plain version on one column (exact).
 from __future__ import annotations
 
 import argparse
-import collections
 import os
-import re
 import subprocess
 import sys
 import tempfile
@@ -33,7 +31,7 @@ import tempfile
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 from chip_smoke import (ELEM_BYTES, TWIDDLE_BYTES, bound, bound_text,  # noqa: E402
-                        butterfly_ops, cuda_ms)
+                        butterfly_ops, cuda_ms, sass_counts)
 
 PROBE = r"""
 #include <stdint.h>
@@ -136,24 +134,6 @@ def pipes(torch, lib, tmp: str) -> None:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def sass_counts(binary: str) -> dict:
-    """Function name -> (instructions, Counter of opcodes) from cuobjdump."""
-    tool = os.path.join(os.path.dirname(cuda_lib()._nvcc()), "cuobjdump")
-    text = subprocess.run([tool, "-sass", binary], capture_output=True,
-                          text=True, check=True).stdout
-    out, name = {}, None
-    for line in text.splitlines():
-        m = re.search(r"Function : (\S+)", line)
-        if m:
-            name = m.group(1)
-            out[name] = collections.Counter()
-            continue
-        m = re.match(r"\s+/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\d\s+)?([A-Z0-9_.]+)", line)
-        if m and name:
-            out[name][m.group(1).split(".")[0]] += 1
-    return {k: (sum(c.values()), c) for k, c in out.items()}
 
 
 def cuda_lib():

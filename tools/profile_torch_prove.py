@@ -68,6 +68,8 @@ NTT_LOG = 20  # --mesh: the four-step NTT's size, bench.py's BENCH_NTT_LOG2
 
 # kernel-name fragment -> group; the first match wins, the rest is "other"
 GROUPS = (
+    # K1 keccak_rows_kernel, K2 keccak_pairs_kernel, K3 keccak_grind_kernel
+    ("keccak_", "K1-K3 Keccak"),
     ("mont_mul_kernel", "H1 mont_mul"),
     ("add_sub_kernel", "H2 add_sub_mod"),
     ("ntt_dif_stages_kernel", "H3 ntt_dif_stages"),
@@ -123,6 +125,7 @@ def main() -> int:
     from lambdaworks_cairo_prover_tpu_torch.cairo.stdlib import (
         compare_lesser_array_program)
     from lambdaworks_cairo_prover_tpu_torch.field import cuda_field as cf
+    from lambdaworks_cairo_prover_tpu_torch.hash import cuda_keccak as ck
     from lambdaworks_cairo_prover_tpu_torch.ntt import cuda_ntt as cn
     from lambdaworks_cairo_prover_tpu_torch.proof.options import ProofOptions
     from lambdaworks_cairo_prover_tpu_torch.proof.serde import serialize_proof
@@ -174,7 +177,10 @@ def main() -> int:
     what = f"{args.workload}, {trace.n_rows} rows x {trace.n_cols} main columns"
     wrappers = {"H1 mont_mul": cf.mont_mul, "H2 add_sub_mod": cf.add_sub_mod,
                 "H3 ntt_dif_stages": cn.ntt_dif_stages,
-                "H4 ntt_dif_local": cn.ntt_dif_local}
+                "H4 ntt_dif_local": cn.ntt_dif_local,
+                "K1 keccak_rows": ck.keccak_rows,
+                "K2 keccak_pairs": ck.keccak_pairs,
+                "K3 keccak_grind": ck.keccak_grind}
 
     def run(route):
         for w in wrappers.values():
