@@ -24,12 +24,18 @@ Phases (any failure exits non-zero):
      leaves; K3 keccak_grind at batches of 2^20 nonces, also against the
      host's leading_zeros_of_nonce; their registers (no spill) and SASS,
      whose 32-bit integer instructions a permutation set their bound;
+     then the scans (``[scan]``), bit for bit: H5 mont_batch_inverse and H6
+     mont_prefix_product at the proves' shapes (2^21, 3 * 2^19 and 3 * 2^21
+     elements, H5 also at 3 * 2^23) with zeros planted, at small and ragged
+     sizes and on all zeros, and against Python ints on a sample; timed
+     beside the chunked loop over H1 that they replaced;
   4. simple_fibonacci proofs against the JAX package's fixtures: 2^10 rows
      with test options (equal bytes) and, where the fixture has a digest,
      its size with the bench options (equal sha256);
   5. the first slice's real-size run: simple_fibonacci at 2^19 rows, blowup
      4, 80 FRI queries, coset offset 3, grinding 20 — prove cold and warm,
-     verify, and check that every kernel was launched on the way;
+     verify, and check that every kernel was launched on the way (but H6:
+     this AIR has no RAP trace);
   6. Cairo proofs against the JAX package's fixtures: fibonacci_program(5)
      and rc_program with test options (equal proof files), and the Cairo
      fibonacci with the bench options whose JAX digest is recorded;
@@ -37,7 +43,8 @@ Phases (any failure exits non-zero):
      rows: equal limbs;
   8. the Cairo real-size run: generate_prover_args(fibonacci_program(70000))
      -> generate_cairo_proof with the bench options (2^19 rows x 52 columns),
-     cold and warm, -> verify_cairo_proof; every kernel must be launched;
+     cold and warm, -> verify_cairo_proof; every kernel must be launched,
+     H1 fewer than 600 times in the cold prove;
      then both FRI commit routes (``[fri-routes]``): a warm prove whose
      on-device FRI chain runs under torch.cuda.set_sync_debug_mode("error")
      (no host sync before its one readback), and a warm prove through the
@@ -68,7 +75,7 @@ Phases (any failure exits non-zero):
      (tests/fixtures/torch_port/cairo_rc_bench_digest.json);
  12. the toy field: a child process with LCP_FIELD=f257 proves
      simple_fibonacci at 8 rows on the card, byte-equal to the JAX
-     package's GF(257) proof, verifies it, launches none of H1-H4 and
+     package's GF(257) proof, verifies it, launches none of H1-H6 and
      launches K1 and K2 (Keccak does not depend on the field);
  13. the command line once on the card (prove_and_verify, a child process);
  14. the multi-device prover (``[parallel]``): Cairo fib(70000) with the
@@ -120,6 +127,7 @@ CAIRO_FIB_N = 70000     # the Cairo real-size run: 2^19 rows x 52 columns
 # the size of that proof with the bench options (it depends on the trace
 # shape and the options alone; bench.py of the JAX package records the same)
 CAIRO_FIB_PROOF_BYTES = 1_601_016
+CAIRO_FIB_MAX_H1 = 600  # H1 launches of its cold prove, at most
 CAIRO_AUX_FIB_N = 500   # 2^12 rows for the RAP build against the host oracle
 CAIRO_MAIN_COLS = 34    # columns that one NTT launch carries on that run
 CAIRO_AUX_COLS = 18
@@ -873,6 +881,162 @@ def phase_keccak(torch, dev) -> dict:
     return out
 
 
+# the scans' shapes: the RAP's memory and range-check scans of a 2^19-row
+# Cairo trace (4 and 3 values a row) and DEEP's inverse over 3 LDE offsets
+# of 2^21 points
+SCAN_SHAPES = (4 << FULL_LOG, 3 << FULL_LOG, 3 << LDE_LOG)
+SCAN_SMALL = (0, 1, 2, 3, 255, 256, 257, 1023, 1024, 1025, 4097, 65535,
+              65536, 65537, 70001)
+SCAN_KERNELS = {"mont_batch_inverse": ("inv_forward_kernel",
+                                      "inv_totals_kernel",
+                                      "inv_backward_kernel"),
+                "mont_prefix_product": ("prefix_reduce_kernel",
+                                        "prefix_totals_kernel",
+                                        "prefix_scan_kernel")}
+FERMAT_PRODUCTS = 251 + 193  # a^(p - 2): squarings and products
+
+
+def scan_input(torch, n: int, dev, plant: bool, all_zero: bool = False):
+    """(16, n) seeded canonical elements on the card, 0, 1 and p - 1 last;
+    where ``plant``, zeros also at the first and last places of H5's chains
+    (and about the first tile's end)."""
+    from lambdaworks_cairo_prover_tpu_torch.field import cuda_scan as cs
+
+    if n < 3:
+        x = random_columns(torch, 1, 3, dev).reshape(16, 3)[:, 3 - n:]
+    else:
+        x = random_columns(torch, 1, n, dev).reshape(16, n)
+    if all_zero:
+        return torch.zeros_like(x).contiguous()
+    if n and plant:
+        k = cs.inverse_plan(n)[0]
+        for e in (0, k - 1, k, n // 2, n - k, cs.TILE - 1, cs.TILE):
+            if 0 <= e < n - 1:
+                x[:, e] = 0
+    return x.contiguous()
+
+
+def phase_scan(torch, dev) -> dict:
+    """H5 mont_batch_inverse and H6 mont_prefix_product against their plain
+    versions on the card, bit for bit: at the path's shapes (SCAN_SHAPES,
+    and H5 at fib(280000)'s DEEP inverse, 3 * 2^23) with zeros planted, at
+    small and ragged sizes, on all zeros; against Python ints on a sample.
+    Their times against the bound, the plain version and the route they
+    replaced (the chunked loop over H1, whose launches are counted), and
+    H1's time a step of that loop.  Returns the kernels' records."""
+    from lambdaworks_cairo_prover_tpu_torch import cuda_lib
+    from lambdaworks_cairo_prover_tpu_torch.field import cuda_field as cf
+    from lambdaworks_cairo_prover_tpu_torch.field import cuda_scan as cs
+    from lambdaworks_cairo_prover_tpu_torch.field import device as fd
+    from lambdaworks_cairo_prover_tpu_torch.field.params import P
+
+    ptxas = ptxas_report(cuda_lib.build_info()["log"])
+    build = {name: {} for name in SCAN_KERNELS}
+    for name, names in SCAN_KERNELS.items():
+        for kernel in names:
+            regs = [v for k, v in ptxas.items() if kernel in k]
+            require(len(regs) == 1, f"{kernel}: not in the build's report")
+            build[name][kernel] = regs[0]
+            log(f"[scan] {kernel}: {regs[0]}")
+    kernels = {"mont_batch_inverse": (cs.mont_batch_inverse,
+                                      cs.batch_inverse_plain),
+               "mont_prefix_product": (cs.mont_prefix_product,
+                                       cs.prefix_product_plain)}
+    errs = {name: 0 for name in kernels}
+
+    def compare(name, x, tag):
+        kernel, plain = kernels[name]
+        got = kernel(x)
+        want, plain_ms = timed(torch, lambda: plain(x))
+        err = max_abs_err(torch, got, want) if x.shape[1] else 0
+        errs[name] = max(errs[name], err)
+        require(err == 0, f"{name} disagrees with its plain version at "
+                f"{tag}")
+        return got, plain_ms
+
+    # small and ragged sizes, and all zeros
+    def planted(name):
+        return name == "mont_batch_inverse"
+
+    for n in SCAN_SMALL:
+        for name in kernels:
+            compare(name, scan_input(torch, n, dev, planted(name)),
+                    f"n = {n}")
+    for name in kernels:
+        compare(name, scan_input(torch, 4097, dev, False, all_zero=True),
+                "zeros")
+    log(f"[scan] mont_batch_inverse, mont_prefix_product vs plain at n = "
+        f"{', '.join(map(str, SCAN_SMALL))} and 4097 zeros: max_abs_err "
+        f"{errs['mont_batch_inverse']}, {errs['mont_prefix_product']}")
+
+    records = {name: [] for name in kernels}
+    shapes = [(name, n) for n in SCAN_SHAPES for name in kernels]
+    shapes.append(("mont_batch_inverse", 3 << (MEMORY_LOG + 2)))
+    for name, n in shapes:
+        x = scan_input(torch, n, dev, planted(name))
+        kernel, plain = kernels[name]
+        got, plain_ms = compare(name, x, f"(16, {n})")
+        # Python ints on a sample: the first and last elements and around
+        # the planted zeros
+        idx = sorted({*range(4), *range(n - 4, n), n // 2 - 1, n // 2,
+                      n // 2 + 1})
+        xs, gs = fd.to_ints(x[:, idx]), fd.to_ints(got[:, idx])
+        if name == "mont_batch_inverse":
+            ok = gs == [pow(v, P - 2, P) for v in xs]
+        else:  # out[e] = out[e - 1] * x[e]
+            prev = fd.to_ints(got[:, [max(e - 1, 0) for e in idx]])
+            ok = all(g == (v if e == 0 else p * v % P)
+                     for e, g, p, v in zip(idx, gs, prev, xs))
+        require(ok, f"{name} at (16, {n}) disagrees with Python ints")
+        nonzero = int((x != 0).any(dim=0).sum())
+        if name == "mont_batch_inverse":
+            k, q, mid_blocks = cs.inverse_plan(n)
+            # the Montgomery trick: 3 products a nonzero element, one
+            # inversion; the totals read and written twice
+            ops = OPS_MUL * (3 * nonzero + FERMAT_PRODUCTS)
+            plan = {"chunks": k, "totals_a_thread": q,
+                    "totals_blocks": mid_blocks}
+        else:
+            ops = OPS_MUL * (n - 1)
+            plan = {"tiles": cs.prefix_tiles(n)}
+        cf.mont_mul.launches = 0
+        h1_out, h1_loop_ms = timed(torch, lambda: plain(x, cf.mont_mul))
+        h1_launches = cf.mont_mul.launches
+        require(torch.equal(h1_out, got), f"{name}: the H1 loop differs")
+        del h1_out
+        step = cs._chunk_len(n)
+        a = x[:, :-(-n // step)].contiguous()
+        h1_step = {"shape": shape_text(a, a),
+                   "ms": cuda_ms(torch, lambda: cf.mont_mul(a, a), 50),
+                   **bound(3 * ELEM_BYTES * a.shape[1],
+                           OPS_MUL * a.shape[1])}
+        rec = {"shape": shape_text(x), "n": n, "nonzero": nonzero, **plan,
+               "ms": cuda_ms(torch, lambda: kernel(x), 10),
+               "plain_ms": plain_ms,
+               # the elements read once and written once
+               **bound(2 * ELEM_BYTES * n, ops),
+               "h1_loop_ms": h1_loop_ms, "h1_loop_launches": h1_launches,
+               "h1_step": h1_step}
+        records[name].append(rec)
+        log(f"[scan] {name} at {rec['shape']} ({plan}): max_abs_err 0, "
+            f"Python ints on {len(idx)} elements equal; {rec['ms']:.4f} ms "
+            f"kernel, {plain_ms:.2f} ms plain, {bound_text(rec)}; the "
+            f"route it replaced: {h1_launches} H1 launches, "
+            f"{h1_loop_ms:.2f} ms, H1 at {h1_step['shape']} "
+            f"{h1_step['ms']:.4f} ms a step, {bound_text(h1_step)}")
+        del x, got
+    out = {}
+    for name, recs in records.items():
+        # the kernels line: H5 at DEEP's shape, H6 at the memory scan's
+        main_n = SCAN_SHAPES[2 if name == "mont_batch_inverse" else 0]
+        main = next(r for r in recs if r["n"] == main_n)
+        out[name] = {**main, "by_shape": recs,
+                     "max_abs_err": errs[name],
+                     # no PyTorch call computes a 256-bit modular scan
+                     "library_ms": None, "build": build[name]}
+    return out
+
+
 def _fib(log_n: int, bench: bool, dev, verify_it: bool = True):
     from lambdaworks_cairo_prover_tpu_torch.air.examples.simple_fibonacci import (
         FibonacciAIR, FibonacciPublicInputs, fibonacci_trace)
@@ -926,6 +1090,7 @@ def phase_fixtures(dev) -> None:
 
 def kernel_wrappers() -> dict:
     from lambdaworks_cairo_prover_tpu_torch.field import cuda_field as cf
+    from lambdaworks_cairo_prover_tpu_torch.field import cuda_scan as cs
     from lambdaworks_cairo_prover_tpu_torch.hash import cuda_keccak as ck
     from lambdaworks_cairo_prover_tpu_torch.ntt import cuda_ntt as cn
 
@@ -933,7 +1098,14 @@ def kernel_wrappers() -> dict:
             "ntt_dif_stages": cn.ntt_dif_stages,
             "ntt_dif_local": cn.ntt_dif_local,
             "keccak_rows": ck.keccak_rows, "keccak_pairs": ck.keccak_pairs,
-            "keccak_grind": ck.keccak_grind}
+            "keccak_grind": ck.keccak_grind,
+            "mont_batch_inverse": cs.mont_batch_inverse,
+            "mont_prefix_product": cs.mont_prefix_product}
+
+
+# kernels that a path does not run: simple_fibonacci has no RAP trace, so
+# no prefix product (its DEEP and boundary inverses take H5)
+NOT_ON_PATH = {"full": {"mont_prefix_product"}}
 
 
 def reset_counts(torch) -> None:
@@ -948,7 +1120,8 @@ def read_counts(tag: str) -> dict:
     launches = {name: w.launches for name, w in kernel_wrappers().items()}
     log(f"[{tag}] kernel launches on this path: {launches}")
     for name, count in launches.items():
-        require(count > 0, f"[{tag}] kernel {name} was not launched")
+        if name not in NOT_ON_PATH.get(tag, ()):
+            require(count > 0, f"[{tag}] kernel {name} was not launched")
     return launches
 
 
@@ -1050,8 +1223,8 @@ def phase_cairo_fixture(dev) -> None:
 
 
 def phase_cairo_aux(torch, dev) -> None:
-    """The device RAP build (sorts, batch inverses, prefix products through
-    H1/H2) against the python-int host oracle."""
+    """The device RAP build (sorts, batch inverses and prefix products
+    through H5/H6) against the python-int host oracle."""
     from lambdaworks_cairo_prover_tpu_torch.cairo import programs
     from lambdaworks_cairo_prover_tpu_torch.cairo.air import CairoAIR
     from lambdaworks_cairo_prover_tpu_torch.cairo.runner import (
@@ -1141,6 +1314,11 @@ def phase_cairo_full(torch, dev) -> dict:
     reset_counts(torch)
     cold = _cairo(program, bench=True, dev=dev)
     launches = read_counts("cairo-full")
+    # the scans go through H5 and H6, not a launch of H1 a step (5,977 H1
+    # launches when they did)
+    require(launches["mont_mul"] < CAIRO_FIB_MAX_H1,
+            f"the cold prove launched H1 {launches['mont_mul']} times, not "
+            f"fewer than {CAIRO_FIB_MAX_H1}")
     peak = torch.cuda.max_memory_allocated()
     warm = _cairo(program, bench=True, dev=dev,
                   args=(cold["trace"], cold["pub"]))
@@ -1398,6 +1576,7 @@ import torch
 from lambdaworks_cairo_prover_tpu_torch.air.examples.simple_fibonacci import (
     FibonacciAIR, FibonacciPublicInputs, fibonacci_trace)
 from lambdaworks_cairo_prover_tpu_torch.field import cuda_field as cf
+from lambdaworks_cairo_prover_tpu_torch.field import cuda_scan as cs
 from lambdaworks_cairo_prover_tpu_torch.field.params import P
 from lambdaworks_cairo_prover_tpu_torch.hash import cuda_keccak as ck
 from lambdaworks_cairo_prover_tpu_torch.ntt import cuda_ntt as cn
@@ -1422,17 +1601,20 @@ print("TOY=" + json.dumps({
                  "ntt_dif_local": cn.ntt_dif_local.launches,
                  "keccak_rows": ck.keccak_rows.launches,
                  "keccak_pairs": ck.keccak_pairs.launches,
-                 "keccak_grind": ck.keccak_grind.launches}}))
+                 "keccak_grind": ck.keccak_grind.launches,
+                 "mont_batch_inverse": cs.mont_batch_inverse.launches,
+                 "mont_prefix_product": cs.mont_prefix_product.launches}}))
 """
 
 
-# the toy field's launches: H1-H4 bake the Stark252 prime and refuse
+# the toy field's launches: H1-H6 bake the Stark252 prime and refuse
 # GF(257); Keccak does not depend on the field (16 limbs a felt there too),
 # so K1 and K2 hash its trees; grinding factor 1 searches on the host
 TOY_LAUNCHES = {"mont_mul": False, "add_sub_mod": False,
                 "ntt_dif_stages": False, "ntt_dif_local": False,
                 "keccak_rows": True, "keccak_pairs": True,
-                "keccak_grind": False}
+                "keccak_grind": False, "mont_batch_inverse": False,
+                "mont_prefix_product": False}
 
 
 def phase_toy_field() -> None:
@@ -1508,6 +1690,7 @@ from lambdaworks_cairo_prover_tpu_torch.cairo.air import (
     generate_cairo_proof, verify_cairo_proof)
 from lambdaworks_cairo_prover_tpu_torch.cairo.runner import generate_prover_args
 from lambdaworks_cairo_prover_tpu_torch.field import cuda_field as cf
+from lambdaworks_cairo_prover_tpu_torch.field import cuda_scan as cs
 from lambdaworks_cairo_prover_tpu_torch.hash import cuda_keccak as ck
 from lambdaworks_cairo_prover_tpu_torch.ntt import cuda_ntt as cn
 from lambdaworks_cairo_prover_tpu_torch.parallel.sharding import make_mesh
@@ -1523,7 +1706,8 @@ dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
                         world_size=world, timeout=datetime.timedelta(seconds=600))
 mesh = make_mesh(world)
 wrappers = (cf.mont_mul, cf.add_sub_mod, cn.ntt_dif_stages, cn.ntt_dif_local,
-            ck.keccak_rows, ck.keccak_pairs, ck.keccak_grind)
+            ck.keccak_rows, ck.keccak_pairs, ck.keccak_grind,
+            cs.mont_batch_inverse, cs.mont_prefix_product)
 
 
 def counted(fn):
@@ -1761,6 +1945,12 @@ SOURCES = {
                      "lambdaworks_cairo_prover_tpu/hash/keccak_device.py:196"),
     "keccak_grind": ("lambdaworks_cairo_prover_tpu_torch/csrc/keccak.cu",
                      "lambdaworks_cairo_prover_tpu/hash/keccak_device.py:237"),
+    # not separate Pallas calls: lax.scan over _mul_kernel (:434, :448 and
+    # inv's :386; :484 and the associative_scan :486)
+    "mont_batch_inverse": ("lambdaworks_cairo_prover_tpu_torch/csrc/scan.cu",
+                           "lambdaworks_cairo_prover_tpu/field/device.py:405"),
+    "mont_prefix_product": ("lambdaworks_cairo_prover_tpu_torch/csrc/scan.cu",
+                            "lambdaworks_cairo_prover_tpu/field/device.py:458"),
 }
 
 
@@ -1792,6 +1982,7 @@ def main() -> int:
         phase(phase_build)
         kern = phase(phase_kernels, torch, dev)
         kern.update(phase(phase_keccak, torch, dev))
+        kern.update(phase(phase_scan, torch, dev))
         phase(phase_fixtures, dev)
         launches_fib = phase(phase_full, torch, dev)
         phase(phase_cairo_fixture, dev)

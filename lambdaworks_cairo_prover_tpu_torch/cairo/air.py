@@ -309,9 +309,9 @@ class CairoAIR(AIR):
 
     def build_auxiliary_trace(self, main_trace: TraceTable, rc) -> TraceTable:
         """The RAP trace, built on the main trace's device: the sorts are
-        stable library sorts on integer keys, the cumulative products
-        blocked `prefix_product` scans over Montgomery multiplies (the H1
-        and H2 kernels on a CUDA device).
+        stable library sorts on integer keys, the ratios' inverses and
+        cumulative products `batch_inverse` and `prefix_product` scans (the
+        H5 and H6 kernels on a CUDA device).
 
         The 11 columns it reads come one at a time through
         ``main_trace.col`` (unpacked one by one from the packed trace).

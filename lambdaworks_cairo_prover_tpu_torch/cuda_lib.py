@@ -27,7 +27,7 @@ import time
 PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
-SOURCES = ("field_ops.cu", "ntt.cu", "keccak.cu")
+SOURCES = ("field_ops.cu", "ntt.cu", "keccak.cu", "scan.cu")
 HEADERS = ("field.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -44,6 +44,8 @@ _SIGNATURES = {
     "lcp_keccak_rows": [_P, _LL, _LL, _LL, _I, _LL, _P, _P],
     "lcp_keccak_pairs": [_P, _LL, _P, _P],
     "lcp_keccak_grind": [_U64, _U64, _U64, _U64, _U64, _LL, _U64, _P, _P],
+    "lcp_batch_inverse": [_P, _P, _LL, _LL, _LL, _P, _P, _P],
+    "lcp_prefix_product": [_P, _P, _LL, _P, _P],
 }
 
 

@@ -7,8 +7,9 @@ package's layout, so arrays pass between the two packages unchanged.
 Elements are in Montgomery form (R = 2^256) and canonical (< p) unless noted.
 
 Dispatch rule: under the Stark252 prime a CUDA tensor goes to the
-hand-written kernels of ``cuda_field`` (mul -> H1, add/sub/neg -> H2),
-whatever its size; a CPU tensor goes to their plain PyTorch versions.  The
+hand-written kernels of ``cuda_field`` (mul -> H1, add/sub/neg -> H2) and
+``cuda_scan`` (batch_inverse -> H5, prefix_product -> H6), whatever its
+size; a CPU tensor goes to their plain PyTorch versions.  The
 kernels bake the sparse Stark252 prime, so a toy field takes the plain
 versions on every device: the choice is fixed by ``params.SPARSE_P`` at
 import, as in the JAX package (field/device.py:mul).  There is no fallback
@@ -22,6 +23,7 @@ import numpy as np
 import torch
 
 from . import cuda_field as cf
+from . import cuda_scan as cs
 from .params import LIMB_MASK, N_LIMBS, P, R, R2, SPARSE_P
 
 _I32 = torch.int32
@@ -205,75 +207,24 @@ def pow_u64(a: torch.Tensor, e: int) -> torch.Tensor:
 
 def inv(a: torch.Tensor) -> torch.Tensor:
     """Fermat inverse a^(p-2), left to right; 0 maps to 0."""
-    bits = bin(P - 2)[2:]  # MSB first; the leading 1 is the initial acc
-    acc = a
-    for bit in bits[1:]:
-        acc = mul(acc, acc)
-        if bit == "1":
-            acc = mul(acc, a)
-    return acc
-
-
-def _chunk_len(n: int) -> int:
-    """Scan length for the chunked Montgomery tricks: about sqrt(n), in
-    [2, 256] (only the schedule depends on it, never the values)."""
-    return max(2, min(256, 1 << ((max(n, 1) - 1).bit_length() + 1) // 2))
-
-
-def _chunk_scan(x: torch.Tensor, chunk: int):
-    """(16, n) -> list over t < chunk of (16, k) inclusive prefix products
-    within each of k = ceil(n/chunk) chunks, and the padded (16, chunk, k)
-    chunk-major input (padding is Montgomery one)."""
-    n = x.shape[1]
-    k = -(-n // chunk)
-    pad = k * chunk - n
-    xs = x
-    if pad:
-        xs = torch.cat([x, ones((pad,), device=x.device)], dim=1)
-    xs = xs.reshape(N_LIMBS, k, chunk).transpose(1, 2).contiguous()
-    pre = [xs[:, 0]]
-    for t in range(1, chunk):
-        pre.append(mul(pre[-1], xs[:, t]))
-    return pre, xs
+    return cs.fermat(a, mul)
 
 
 def batch_inverse(x: torch.Tensor) -> torch.Tensor:
     """Montgomery-trick batch inversion along axis 1 of ``x`` (16, n);
-    zeros map to zero (lambdaworks `inplace_batch_inverse`).
-
-    Chunks of about sqrt(n) are scanned in parallel; one Fermat inversion
-    of the chunk totals, then the backward sweep."""
-    n = x.shape[1]
-    if n == 0:
-        return x
-    zmask = is_zero(x)
-    xs = select(zmask, ones((n,), device=x.device), x)
-    chunk = _chunk_len(n)
-    pre, xs = _chunk_scan(xs, chunk)
-    carry = inv(pre[-1])
-    out = [None] * chunk
-    for t in range(chunk - 1, 0, -1):
-        out[t] = mul(carry, pre[t - 1])
-        carry = mul(carry, xs[:, t])
-    out[0] = carry
-    res = torch.stack(out, dim=2).reshape(N_LIMBS, -1)[:, :n]
-    return select(zmask, zeros((n,), device=x.device), res)
+    zeros map to zero (lambdaworks `inplace_batch_inverse`): H5 on a CUDA
+    tensor, the chunked plain scan otherwise."""
+    if _plain(x, x):
+        return cs.batch_inverse_plain(x)
+    return cs.mont_batch_inverse(x.contiguous())
 
 
 def prefix_product(x: torch.Tensor) -> torch.Tensor:
-    """Inclusive prefix product along axis 1 of ``x`` (16, n)."""
-    n = x.shape[1]
-    if n <= 1:
-        return x.clone()
-    chunk = _chunk_len(n)
-    pre, _ = _chunk_scan(x, chunk)
-    blocks = torch.stack(pre, dim=2)  # (16, k, chunk)
-    k = blocks.shape[1]
-    if k > 1:
-        incl = prefix_product(pre[-1])  # running product of chunk totals
-        excl = torch.cat([ones((1,), device=x.device), incl[:, :-1]], dim=1)
-        blocks = mul(blocks, excl[:, :, None])
-    return blocks.reshape(N_LIMBS, -1)[:, :n]
+    """Inclusive prefix product along axis 1 of ``x`` (16, n): H6 on a CUDA
+    tensor, the chunked plain scan otherwise."""
+    if _plain(x, x):
+        return cs.prefix_product_plain(x)
+    return cs.mont_prefix_product(x.contiguous())
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,458 @@
+"""The scan kernels' plain versions (H5 ``batch_inverse_plain``, H6
+``prefix_product_plain``) against the JAX package and Python ints, and the
+kernels' schedules walked on the CPU.
+
+The same inputs, made from a seed with numpy, go through the JAX package's
+``batch_inverse`` / ``prefix_product`` and the port's plain versions;
+elements are compared exactly (tolerance 0).  The kernels themselves
+(csrc/scan.cu) run only on the card, where ``chip_smoke.py`` ``[scan]``
+holds them against these plain versions bit for bit.  Here
+``mirror_batch_inverse`` and ``mirror_prefix_product`` walk the kernels'
+index arithmetic (H5's chunk-major chains, its totals' blocks and product
+tree, H6's tiles, threads, warps and the totals' pass, the ragged edge)
+with the plain product, and must give the Python ints' answers; the
+launchers must refuse what they do not take, and CPU tensors must never
+reach them."""
+
+import json
+import os
+import re
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from lambdaworks_cairo_prover_tpu.field import device as jfd
+from lambdaworks_cairo_prover_tpu_torch import cuda_lib
+from lambdaworks_cairo_prover_tpu_torch.field import cuda_scan as cs
+from lambdaworks_cairo_prover_tpu_torch.field import device as tfd
+from lambdaworks_cairo_prover_tpu_torch.field.cuda_field import mul_plain
+from lambdaworks_cairo_prover_tpu_torch.field.params import P, R
+from lambdaworks_cairo_prover_tpu_torch.interop import (limbs_from_numpy,
+                                                        limbs_to_numpy)
+
+from test_torch_field import rand_limbs
+
+torch.set_num_threads(1)
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+ROOT = os.path.dirname(HERE)
+SCAN_CU = os.path.join(cuda_lib.CSRC_DIR, "scan.cu")
+
+
+def seeded(seed: int, n: int, zeros=()) -> torch.Tensor:
+    """(16, n) canonical elements from a seed, zero at ``zeros``."""
+    a = rand_limbs(seed, (n,))
+    for e in zeros:
+        if e < n:
+            a[:, e] = 0
+    return limbs_from_numpy(a, "cpu")
+
+
+def inverse_ints(x: torch.Tensor) -> list:
+    """Each element's inverse (0 for 0) by the Montgomery trick on Python
+    ints: running products, one pow, and back."""
+    vals = tfd.to_ints(x)
+    pre, acc = [], 1
+    for v in vals:
+        pre.append(acc)
+        acc = acc * v % P if v else acc
+    inv = pow(acc, P - 2, P)
+    out = [0] * len(vals)
+    for e in range(len(vals) - 1, -1, -1):
+        if vals[e]:
+            out[e] = inv * pre[e] % P
+            inv = inv * vals[e] % P
+    return out
+
+
+def fermat(a: torch.Tensor) -> torch.Tensor:
+    """The inverse of each element of (16, m), by pow on Python ints (the
+    kernel's Fermat chain is the plain version's, tested on its own)."""
+    return tfd.from_ints([pow(v, P - 2, P) for v in tfd.to_ints(a)],
+                         device="cpu")
+
+
+def prefix_ints(x: torch.Tensor) -> list:
+    out, acc = [], 1
+    for v in tfd.to_ints(x):
+        acc = acc * v % P
+        out.append(acc)
+    return out
+
+
+def _ones(*shape) -> torch.Tensor:
+    return cs._ones(1, "cpu").reshape((16,) + (1,) * len(shape)).expand(
+        (16,) + shape).clone()
+
+
+# ---------------------------------------------------------------------------
+# The kernels' schedules on the CPU
+# ---------------------------------------------------------------------------
+
+
+def mirror_batch_inverse(x: torch.Tensor, k: int, q: int,
+                         mid: int = cs.MID_THREADS) -> torch.Tensor:
+    """csrc/scan.cu's H5 (inv_forward, inv_totals, inv_backward) with k
+    chunks, q totals a thread and ``mid`` threads a totals block; thread
+    j's values are column j."""
+    n = x.shape[1]
+    zero = (x == 0).all(dim=0)
+    out = torch.empty_like(x)
+    j = torch.arange(k)
+    cnt = (n - 1 - j) // k + 1  # elements of chunk j
+    acc = _ones(k)
+    for t in range(int(cnt.max())):  # inv_forward
+        live = j[cnt > t]
+        e = live + t * k
+        acc[:, live] = torch.where(zero[e], acc[:, live],
+                                   mul_plain(acc[:, live], x[:, e]))
+        out[:, e] = acc[:, live]
+    # inv_totals: block b, thread i takes the totals b mid q + i + t mid
+    # (t < q); the blocks side by side on axis 1
+    tot, pre = acc, torch.zeros_like(acc)
+    blocks = -(-k // (mid * q))
+    e0 = (torch.arange(blocks)[:, None] * mid * q + torch.arange(mid)).reshape(-1)
+    cnt_i = torch.where(e0 < k, torch.clamp((k - 1 - e0) // mid + 1, max=q),
+                        torch.zeros_like(e0))
+    acc = _ones(blocks * mid)
+    lanes = torch.arange(blocks * mid)
+    for t in range(q):
+        live = lanes[cnt_i > t]
+        e = e0[live] + t * mid
+        acc[:, live] = mul_plain(acc[:, live], tot[:, e])
+        pre[:, e] = acc[:, live]
+    node = _ones(blocks, 2 * mid)  # the trees: leaf mid + i, root 1
+    node[:, :, mid:] = acc.reshape(16, blocks, mid)
+    half = mid // 2
+    while half >= 1:
+        m = torch.arange(half, 2 * half)
+        node[:, :, m] = mul_plain(node[:, :, 2 * m], node[:, :, 2 * m + 1])
+        half //= 2
+    node[:, :, 1] = fermat(node[:, :, 1])
+    half = 1
+    while half < mid:
+        m = torch.arange(half, 2 * half)
+        v, left, right = node[:, :, m], node[:, :, 2 * m], node[:, :, 2 * m + 1]
+        node[:, :, 2 * m] = mul_plain(v, right)
+        node[:, :, 2 * m + 1] = mul_plain(v, left)
+        half *= 2
+    acc = node[:, :, mid:].reshape(16, blocks * mid)
+    for t in range(q - 1, -1, -1):
+        live = lanes[cnt_i > t]
+        e = e0[live] + t * mid
+        if t == 0:
+            tot[:, e] = acc[:, live]
+            continue
+        r = mul_plain(acc[:, live], pre[:, e - mid])
+        acc[:, live] = mul_plain(acc[:, live], tot[:, e])
+        tot[:, e] = r
+    carry = tot  # inv_backward, from each chunk's last element down
+    for t in range(int(cnt.max()) - 1, -1, -1):
+        live = j[cnt > t]
+        e = live + t * k
+        z = zero[e]
+        if t > 0:
+            r = mul_plain(carry[:, live], out[:, e - k])
+            carry[:, live] = torch.where(z, carry[:, live],
+                                         mul_plain(carry[:, live], x[:, e]))
+        else:
+            r = carry[:, live]
+        out[:, e] = torch.where(z, torch.zeros_like(r), r)
+    return out
+
+
+def _warp_scan(a: torch.Tensor) -> torch.Tensor:
+    """Inclusive product scan over the last axis (32 lanes), by
+    __shfl_up_sync steps of 1, 2, 4, 8, 16."""
+    for off in (1, 2, 4, 8, 16):
+        nxt = a.clone()
+        nxt[..., off:] = mul_plain(a[..., :-off], a[..., off:])
+        a = nxt
+    return a
+
+
+def _lane_before(a: torch.Tensor) -> torch.Tensor:
+    ex = torch.empty_like(a)
+    ex[..., 1:] = a[..., :-1]
+    ex[..., :1] = _ones(*a.shape[1:-1], 1)
+    return ex
+
+
+def _tiles(src: torch.Tensor, tile: int) -> torch.Tensor:
+    """(16, n) -> (16, ceil(n / tile), tile), padded with one."""
+    n = src.shape[1]
+    nb = -(-n // tile)
+    pad = nb * tile - n
+    if pad:
+        src = torch.cat([src, _ones(pad)], dim=1)
+    return src.reshape(16, nb, tile)
+
+
+def _scan_tiles(tiles: torch.Tensor, carry: torch.Tensor, threads: int,
+                per: int):
+    """scan_tile of each of B tiles (16, B, threads * per) from its carry
+    (16, B): thread tid scans elements tid * per .. + per - 1, a warp scan
+    of the threads' products, a scan of the warps' products times the
+    carry; -> the scanned tiles and carry times each tile's product."""
+    nb, warps = tiles.shape[1], threads // 32
+    v = tiles.reshape(16, nb, threads, per)
+    pre = [v[..., 0]]
+    for t in range(1, per):
+        pre.append(mul_plain(pre[-1], v[..., t]))
+    acc = _warp_scan(pre[-1].reshape(16, nb, warps, 32))
+    ex = _lane_before(acc)
+    s = _ones(nb, 32)
+    s[:, :, :warps] = acc[..., 31]
+    s = _warp_scan(s)
+    o = mul_plain(carry[:, :, None], _lane_before(s))
+    total = mul_plain(carry, s[..., warps - 1])
+    off = mul_plain(o[:, :, :warps, None], ex).reshape(16, nb, threads)
+    out = mul_plain(off[..., None], torch.stack(pre, dim=3))
+    return out.reshape(16, nb, threads * per), total
+
+
+def mirror_prefix_product(x: torch.Tensor, threads: int = cs.TILE_THREADS,
+                          per: int = cs.PER_THREAD) -> torch.Tensor:
+    """csrc/scan.cu's H6 (prefix_reduce, prefix_totals, prefix_scan) with
+    tiles of threads * per elements."""
+    n = x.shape[1]
+    tile = threads * per
+    tiles = _tiles(x, tile)
+    nb = tiles.shape[1]
+    if nb == 1:
+        out, _ = _scan_tiles(tiles, _ones(1), threads, per)
+        return out.reshape(16, -1)[:, :n]
+    # prefix_reduce: thread tid takes elements it * threads + tid, then the
+    # xor butterfly within warps, then thread 0 over the warps
+    acc = _ones(nb, threads)
+    for it in range(per):
+        acc = mul_plain(acc, tiles[:, :, it * threads:(it + 1) * threads])
+    acc = acc.reshape(16, nb, threads // 32, 32)
+    lane = torch.arange(32)
+    for off in (16, 8, 4, 2, 1):
+        acc = mul_plain(acc, acc[..., lane ^ off])
+    tot = acc[:, :, 0, 0]
+    for u in range(1, threads // 32):
+        tot = mul_plain(tot, acc[:, :, u, 0])
+    # prefix_totals: one block, a tile of totals at a time
+    carry = _ones(1)
+    for base in range(0, nb, tile):
+        part, carry = _scan_tiles(_tiles(tot[:, base:base + tile], tile),
+                                  carry, threads, per)
+        tot[:, base:base + tile] = part[:, 0, :min(tile, nb - base)]
+    # prefix_scan: tile b from the product of the tiles before
+    carry = torch.cat([_ones(1), tot[:, :-1]], dim=1)
+    out, _ = _scan_tiles(tiles, carry, threads, per)
+    return out.reshape(16, -1)[:, :n]
+
+
+# ---------------------------------------------------------------------------
+# Plain versions against the JAX package and Python ints
+# ---------------------------------------------------------------------------
+
+_jax_inverse = jax.jit(jfd.batch_inverse)
+_jax_prefix = jax.jit(jfd.prefix_product)
+
+
+@pytest.mark.parametrize("n, zeros", [
+    (1, ()), (2, (1,)), (255, (0, 254)), (257, (0, 255, 256)),
+    (257, tuple(range(257)))])
+def test_plain_versions_match_jax(n, zeros):
+    """Zeros at a chunk's first and last place (JAX's chunks of 256), all
+    zeros, n = 1 and 2."""
+    x = seeded(n, n, zeros)
+    a = limbs_to_numpy(x)
+    assert np.array_equal(limbs_to_numpy(cs.batch_inverse_plain(x)),
+                          np.asarray(_jax_inverse(jnp.asarray(a))))
+    assert np.array_equal(limbs_to_numpy(cs.prefix_product_plain(x)),
+                          np.asarray(_jax_prefix(jnp.asarray(a))))
+
+
+@pytest.mark.parametrize("n", [1023, (1 << 14) + 5])
+def test_plain_versions_match_python_ints(n):
+    x = seeded(n, n, (0, 1, 300, n - 1))
+    assert tfd.to_ints(cs.batch_inverse_plain(x)) == inverse_ints(x)
+    assert tfd.to_ints(cs.prefix_product_plain(x)) == prefix_ints(x)
+
+
+# ---------------------------------------------------------------------------
+# The kernels' schedules
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n, k, q", [
+    (1, 1, 1), (2, 2, 1), (3, 2, 1),
+    (1000, 37, 1),    # chains of 27 or 28 elements, one totals block
+    (1000, 300, 1),   # two totals blocks, the second ragged
+    (1500, 700, 2),   # q = 2: 512 totals a block, the second ragged
+    (4099, 4099, 1),  # the plan's own at this size: one element a chain
+    ((1 << 14) + 5, 1 << 10, 3)])
+def test_h5_schedule_matches_python_ints(n, k, q):
+    x = seeded(n + k, n, (0, k - 1, k, n - 1, n // 2))
+    assert tfd.to_ints(mirror_batch_inverse(x, k, q)) == inverse_ints(x)
+
+
+def test_h5_schedule_with_small_totals_blocks():
+    """A totals block of 32 threads (5 tree levels) over 100 totals, 2 a
+    thread: two blocks, the second ragged."""
+    x = seeded(7, 700, (3, 99, 100))
+    assert tfd.to_ints(mirror_batch_inverse(x, 100, 2, mid=32)) == \
+        inverse_ints(x)
+
+
+@pytest.mark.parametrize("n, threads, per", [
+    (1, cs.TILE_THREADS, cs.PER_THREAD),
+    (cs.TILE, cs.TILE_THREADS, cs.PER_THREAD),
+    (cs.TILE + 1, cs.TILE_THREADS, cs.PER_THREAD),
+    (5 * cs.TILE - 3, cs.TILE_THREADS, cs.PER_THREAD),
+    # tiles of 128: 131 tile totals, so the totals' pass walks two tiles
+    (128 * 130 + 7, 64, 2)])
+def test_h6_schedule_matches_python_ints(n, threads, per):
+    x = seeded(n + threads, n)
+    assert tfd.to_ints(mirror_prefix_product(x, threads, per)) == \
+        prefix_ints(x)
+
+
+@pytest.mark.parametrize("n", [1, 2, 1000, 1 << 16, (1 << 16) + 1,
+                               3 << 19, 1 << 21, 3 << 21, 1 << 23, 3 << 23])
+def test_plans_cover_every_element(n):
+    """At the proves' shapes too (the RAP's 2^21 and 3 * 2^19, DEEP's
+    3 * 2^21, fib(280000)'s 2^23 and 3 * 2^23): every chain has an
+    element, every totals block a total, and the blocks cover the totals."""
+    k, q, blocks = cs.inverse_plan(n)
+    assert 1 <= k <= min(n, cs.MAX_CHUNKS) and q >= 1
+    assert (blocks - 1) * cs.MID_THREADS * q < k <= blocks * cs.MID_THREADS * q
+    assert blocks <= cs.MID_BLOCKS
+    nb = cs.prefix_tiles(n)
+    assert (nb - 1) * cs.TILE < n <= nb * cs.TILE
+
+
+# ---------------------------------------------------------------------------
+# The source and the launchers
+# ---------------------------------------------------------------------------
+
+
+def _source() -> str:
+    with open(SCAN_CU) as f:
+        return f.read()
+
+
+def test_kernel_constants_match_the_source():
+    """Block shapes, the Montgomery one and the Fermat exponent's bits that
+    csrc/scan.cu bakes."""
+    src = _source()
+    consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
+    assert int(consts["kMidThreads"]) == cs.MID_THREADS
+    assert int(consts["kTileThreads"]) == cs.TILE_THREADS
+    assert int(consts["kPerThread"]) == cs.PER_THREAD
+    body = src[src.index("void set_one("):]
+    words = re.findall(r"w\[(\d)\] = (0x[0-9A-Fa-f]+)u;", body)[:8]
+    assert sum(int(v, 16) << (32 * int(i)) for i, v in words) == R
+    # p - 2 = 2^251 + 2^196 + (2^192 - 1): a leading bit at 251, then
+    # bit 196 and the bits below 192
+    assert "bit = 250" in src and "bit < 192 || bit == 196" in src
+    assert P - 2 == (1 << 251) + (1 << 196) + (1 << 192) - 1
+
+
+def test_new_signatures_match_scan_cu():
+    """The two entry points are defined with C linkage in csrc/scan.cu, with
+    a pointer where the ctypes signature has one and a 64-bit int where it
+    has c_longlong."""
+    src = _source()
+    start = src.index('extern "C" {')
+    defined = {m.group(1): [p.strip() for p in m.group(2).split(",")]
+               for m in re.finditer(r"^int (lcp_\w+)\(([^)]*)\)", src[start:],
+                                    re.M)}
+    assert set(defined) == {"lcp_batch_inverse", "lcp_prefix_product"}
+    assert "scan.cu" in cuda_lib.SOURCES
+    for name, params in defined.items():
+        argtypes = cuda_lib._SIGNATURES[name]
+        assert len(argtypes) == len(params), name
+        for t, p in zip(argtypes, params):
+            want = "void*" if t is cuda_lib._P else "long long"
+            assert re.sub(r"\s+", " ", p).replace(" *", "*").startswith(
+                ("const " + want, want)), (name, p)
+
+
+def test_cpu_tensors_take_the_plain_versions():
+    counts = (cs.mont_batch_inverse.launches, cs.mont_prefix_product.launches)
+    x = seeded(3, 600, (0, 599))
+    assert torch.equal(tfd.batch_inverse(x), cs.batch_inverse_plain(x))
+    assert torch.equal(tfd.prefix_product(x), cs.prefix_product_plain(x))
+    assert counts == (cs.mont_batch_inverse.launches,
+                      cs.mont_prefix_product.launches)
+    assert "lib" not in cuda_lib._state
+
+
+@pytest.mark.parametrize("launcher", [cs.mont_batch_inverse,
+                                      cs.mont_prefix_product])
+def test_launchers_refuse_what_they_do_not_take(launcher):
+    x = seeded(4, 64)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        launcher(x)
+    with pytest.raises(ValueError, match=r"\(16, n\)"):
+        launcher(x.reshape(16, 8, 8))
+    with pytest.raises(ValueError, match=r"\(16, n\)"):
+        launcher(x[:8])
+    with pytest.raises(TypeError, match="int32"):
+        launcher(x.to(torch.int64))
+    with pytest.raises(ValueError, match="contiguous"):
+        launcher(x[:, ::2])
+    with pytest.raises(TypeError, match="tensor"):
+        launcher(limbs_to_numpy(x))
+    # any other device goes from field/device.py to the launchers
+    meta = torch.empty((16, 64), dtype=torch.int32, device="meta")
+    for fn in (tfd.batch_inverse, tfd.prefix_product):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            fn(meta)
+    assert "lib" not in cuda_lib._state
+
+
+_TOY_SCRIPT = r"""
+import json, os, sys
+os.environ["LCP_FIELD"] = "f257"
+sys.path.insert(0, sys.argv[1])
+import torch
+torch.set_num_threads(1)
+from lambdaworks_cairo_prover_tpu_torch.field import cuda_scan as cs
+from lambdaworks_cairo_prover_tpu_torch.field import device as fd
+vals = [5, 0, 256, 1, 100, 0, 3] * 50
+x = fd.from_ints(vals, device="cpu")
+out = {"inverse": fd.to_ints(fd.batch_inverse(x)),
+       "prefix": fd.to_ints(fd.prefix_product(x)), "refused": [],
+       "launches": [cs.mont_batch_inverse.launches,
+                    cs.mont_prefix_product.launches]}
+for launcher in (cs.mont_batch_inverse, cs.mont_prefix_product):
+    try:
+        launcher(x)
+    except ValueError as exc:
+        out["refused"].append(str(exc))
+print("TOY=" + json.dumps(out))
+"""
+
+
+def test_toy_field_takes_the_plain_versions():
+    """Under GF(257) the launchers refuse the field and field/device.py
+    takes the plain versions, which are right there too."""
+    env = dict(os.environ)
+    env.pop("LCP_FIELD", None)
+    proc = subprocess.run([sys.executable, "-c", _TOY_SCRIPT, ROOT],
+                          capture_output=True, text=True, timeout=300, env=env)
+    assert proc.returncode == 0, f"{proc.stdout}\n{proc.stderr}"
+    out = json.loads([ln for ln in proc.stdout.splitlines()
+                      if ln.startswith("TOY=")][-1][len("TOY="):])
+    vals = [5, 0, 256, 1, 100, 0, 3] * 50
+    assert out["inverse"] == [pow(v, 255, 257) for v in vals]
+    acc, want = 1, []
+    for v in vals:
+        acc = acc * v % 257
+        want.append(acc)
+    assert out["prefix"] == want
+    assert out["launches"] == [0, 0]
+    assert len(out["refused"]) == 2
+    assert all("Stark252" in msg for msg in out["refused"])

@@ -74,6 +74,12 @@ GROUPS = (
     ("add_sub_kernel", "H2 add_sub_mod"),
     ("ntt_dif_stages_kernel", "H3 ntt_dif_stages"),
     ("ntt_dif_local_kernel", "H4 ntt_dif_local"),
+    ("inv_forward_kernel", "H5 mont_batch_inverse"),
+    ("inv_totals_kernel", "H5 mont_batch_inverse"),
+    ("inv_backward_kernel", "H5 mont_batch_inverse"),
+    ("prefix_reduce_kernel", "H6 mont_prefix_product"),
+    ("prefix_totals_kernel", "H6 mont_prefix_product"),
+    ("prefix_scan_kernel", "H6 mont_prefix_product"),
     ("roll", "PyTorch roll"),
     ("sort", "PyTorch sort"),
     ("Sort", "PyTorch sort"),
@@ -125,6 +131,7 @@ def main() -> int:
     from lambdaworks_cairo_prover_tpu_torch.cairo.stdlib import (
         compare_lesser_array_program)
     from lambdaworks_cairo_prover_tpu_torch.field import cuda_field as cf
+    from lambdaworks_cairo_prover_tpu_torch.field import cuda_scan as cs
     from lambdaworks_cairo_prover_tpu_torch.hash import cuda_keccak as ck
     from lambdaworks_cairo_prover_tpu_torch.ntt import cuda_ntt as cn
     from lambdaworks_cairo_prover_tpu_torch.proof.options import ProofOptions
@@ -180,7 +187,9 @@ def main() -> int:
                 "H4 ntt_dif_local": cn.ntt_dif_local,
                 "K1 keccak_rows": ck.keccak_rows,
                 "K2 keccak_pairs": ck.keccak_pairs,
-                "K3 keccak_grind": ck.keccak_grind}
+                "K3 keccak_grind": ck.keccak_grind,
+                "H5 mont_batch_inverse": cs.mont_batch_inverse,
+                "H6 mont_prefix_product": cs.mont_prefix_product}
 
     def run(route):
         for w in wrappers.values():
