@@ -20,15 +20,17 @@ Phases (any failure exits non-zero):
      then the Keccak-256 kernels (``[keccak]``), bit for bit: K1
      keccak_rows at (16, c, 2^21) for c = 61, 43, 34, 18 in the row-leaf
      layout, the composition's 2 columns and the FRI's single-felt leaves
-     at 2^21 and 2^20; K2 keccak_pairs at every level of a tree over 2^21
-     leaves; K3 keccak_grind at batches of 2^20 nonces, also against the
-     host's leading_zeros_of_nonce; their registers (no spill) and SASS,
-     whose 32-bit integer instructions a permutation set their bound;
+     at 2^21 and 2^20; K2 keccak_pairs on the tree over n leaves at every
+     n = 2^0 .. 2^21 (one launch a tree, timed beside a launch a level)
+     and at one pair; K3 keccak_grind at batches of 2^20 nonces, also
+     against the host's leading_zeros_of_nonce; their registers (no
+     spill) and SASS, whose 32-bit integer instructions a permutation set
+     their bound;
      then the scans (``[scan]``), bit for bit: H5 mont_batch_inverse and H6
      mont_prefix_product at the proves' shapes (2^21, 3 * 2^19 and 3 * 2^21
-     elements, H5 also at 3 * 2^23) with zeros planted, at small and ragged
-     sizes and on all zeros, and against Python ints on a sample; timed
-     beside the chunked loop over H1 that they replaced;
+     elements, H5 also at 3 * 2^23, 1 and 2^16) with zeros planted, at
+     small and ragged sizes and on all zeros, and against Python ints on a
+     sample; timed beside the chunked loop over H1 that they replaced;
   4. simple_fibonacci proofs against the JAX package's fixtures: 2^10 rows
      with test options (equal bytes) and, where the fixture has a digest,
      its size with the bench options (equal sha256);
@@ -704,9 +706,11 @@ def digest_err(torch, a, b) -> int:
 
 def keccak_build_facts() -> dict:
     """Registers, spills and SASS of K1-K3, and the 32-bit integer
-    instructions of one permutation: those of K2's kernel, one straight-line
-    permutation of a 64-byte message, less its loads, stores, control and
-    special-register reads.  Fails on a spill or a stack frame."""
+    instructions of one permutation: the LOP3 and SHF of K2's kernel (a
+    64-bit xor, and-not or rotate is two of them; the rest of its integer
+    work is the tree's bookkeeping), which must hold one permutation: within
+    2 % of K3's, one straight-line permutation of a 40-byte message.  Fails
+    on a spill or a stack frame."""
     from lambdaworks_cairo_prover_tpu_torch import cuda_lib
 
     info = cuda_lib.build_info()
@@ -723,6 +727,7 @@ def keccak_build_facts() -> dict:
         int_ops = sum(n for op, n in ops.items()
                       if op not in NOT_INT_OPS and not op.startswith("U"))
         facts[kernel] = {**regs[0], "sass": count, "int_ops": int_ops,
+                         "lop3_shf": ops["LOP3"] + ops["SHF"],
                          "opcodes": dict(ops.most_common(8))}
         log(f"[keccak] {kernel}: {regs[0]}; SASS {count} instructions, "
             f"{int_ops} of them 32-bit integer work; {dict(ops.most_common(8))}")
@@ -730,9 +735,13 @@ def keccak_build_facts() -> dict:
         require(regs[0].get("spill_stores") == 0 and
                 regs[0].get("spill_loads") == 0 and regs[0].get("stack") == 0,
                 f"{kernel} spills registers or keeps a local array")
-    per_perm = facts["keccak_pairs_kernel"]["int_ops"]
+    per_perm = facts["keccak_pairs_kernel"]["lop3_shf"]
+    perm_k3 = facts["keccak_grind_kernel"]["lop3_shf"]
     require(per_perm > 24 * 100, f"{per_perm} instructions a permutation: "
             "the SASS count went wrong")
+    require(abs(per_perm - perm_k3) <= perm_k3 // 50,
+            f"keccak_pairs_kernel holds {per_perm} LOP3 and SHF against one "
+            f"permutation's {perm_k3}: not one permutation in its SASS")
     facts["ops_per_permutation"] = per_perm
     return facts
 
@@ -742,10 +751,11 @@ def phase_keccak(torch, dev) -> dict:
     times.  K1 at the row leaves of every commit the proves make: (16, c,
     2^21) in _row_leaves' layout for the hinted run's 61 and 43 columns and
     fib(70000)'s 34 and 18, the composition's 2 columns in round 2's (16,
-    2^21, 2) layout, and the single-felt FRI leaves at 2^21 and 2^20; K2 at
-    every level of a tree over 2^21 leaves (2^21 digests down to 2) and at
-    the FRI chain's draw; K3 at batches of 2^20 nonces against the host's
-    leading_zeros_of_nonce.  Returns the kernels' records."""
+    2^21, 2) layout, and the single-felt FRI leaves at 2^21 and 2^20; K2 on
+    the tree over n leaves at every n = 2^0 .. 2^21 (keccak_tree, against
+    the plain levels; one launch a tree; timed beside one launch a level)
+    and at the FRI chain's draw; K3 at batches of 2^20 nonces against the
+    host's leading_zeros_of_nonce.  Returns the kernels' records."""
     import numpy as np
     from lambdaworks_cairo_prover_tpu_torch.hash import cuda_keccak as ck
     from lambdaworks_cairo_prover_tpu_torch.hash import keccak_device as kd
@@ -801,37 +811,66 @@ def phase_keccak(torch, dev) -> dict:
             lambda: kd.hash_felt_leaves(col), 20))
     del big
 
-    # K2: every level of a tree over 2^21 leaves, and one pair (the draw)
+    # K2: the tree over n leaves at every n = 2^0 .. 2^21 against the plain
+    # levels, its launches, and its time beside the per-level route's (a
+    # one-level K2 launch a level); then one pair (the FRI draw)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     leaves = torch.randint(-2**31, 2**31 - 1, (lde, 8), dtype=torch.int32,
                            device=dev, generator=gen).view(torch.int64)
-    levels = tree_levels(leaves)
-    cur, level_ms = leaves, []
-    for got in levels[1:]:
-        want, t = timed(torch, lambda: kd.hash_digest_pairs_plain(cur))
-        level_ms.append(t)
-        errs["keccak_pairs"] = max(errs["keccak_pairs"],
-                                   digest_err(torch, got, want))
-        cur = want
-    log(f"[keccak] keccak_pairs at every level of a tree over {lde} leaves "
-        f"({len(levels) - 1} launches, {lde} digests down to 2): max_abs_err "
-        f"{errs['keccak_pairs']}")
+
+    def per_level(x):
+        cur = x
+        while cur.shape[0] > 1:
+            cur = ck.keccak_pairs(cur)
+        return cur
+
+    trees = []
+    for log_n in range(LDE_LOG + 1):
+        n = 1 << log_n
+        x = leaves[:n]
+        before = ck.keccak_pairs.launches
+        got = ck.keccak_tree(x)
+        launches = ck.keccak_pairs.launches - before
+        want, plain_ms = timed(torch, lambda: kd.hash_tree_plain(x))
+        err = digest_err(torch, got, want)
+        errs["keccak_pairs"] = max(errs["keccak_pairs"], err)
+        levels = tree_levels(x)
+        root = want[-1:] if n > 1 else x
+        require(err == 0 and torch.equal(levels[-1], root),
+                f"keccak_pairs disagrees with its plain version on a tree "
+                f"over {n} leaves")
+        require(launches == (n > 1),
+                f"a tree over {n} leaves took {launches} launches")
+        reps = 5 if log_n >= 19 else 20
+        rec = {"n": n, "tree_launches": launches,
+               "ms": cuda_ms(torch, lambda: ck.keccak_tree(x), reps),
+               "per_level_ms": cuda_ms(torch, lambda: per_level(x), reps),
+               "per_level_launches": log_n, "plain_ms": plain_ms,
+               # the leaves read once, the n - 1 nodes written once
+               **bound(32 * n + 32 * (n - 1), per_perm * (n - 1))}
+        trees.append(rec)
+        log(f"[keccak] tree over {n} leaves: max_abs_err {err}, "
+            f"{launches} launch; {rec['ms']:.4f} ms, the "
+            f"per-level route ({log_n} launches) {rec['per_level_ms']:.4f} "
+            f"ms, {plain_ms:.2f} ms plain"
+            + (f", {bound_text(rec)}" if n > 1 else ""))
     require(errs["keccak_pairs"] == 0, "keccak_pairs disagrees with its "
             "plain version")
-    k = lde // 2
-    pairs = {"shape": shape_text(leaves),
-             "ms": cuda_ms(torch, lambda: ck.keccak_pairs(leaves), 20),
-             "plain_ms": level_ms[0],
-             # the digests read once, the parents written once
-             **bound(32 * lde + 32 * k, per_perm * k),
+    slower = [r["n"] for r in trees if r["ms"] > r["per_level_ms"]]
+    log(f"[keccak] trees slower than the per-level route: {slower or 'none'}")
+    main_tree = trees[-1]
+    pairs = {"shape": f"tree over {shape_text(leaves)} leaves",
+             **{k: v for k, v in main_tree.items() if k != "n"},
+             "by_tree": trees,
              "draw": {"shape": "(2, 4)",
                       "ms": cuda_ms(torch, lambda: ck.keccak_pairs(leaves[:2]), 50),
-                      "plain_ms": level_ms[-1],
+                      "plain_ms": trees[1]["plain_ms"],
                       **bound(64 + 32, per_perm)}}
-    for tag, r in (("", pairs), (" (one pair)", pairs["draw"])):
-        log(f"[keccak] keccak_pairs at {r['shape']}{tag}: {r['ms']:.4f} ms "
-            f"kernel, {r['plain_ms']:.4f} ms plain, {bound_text(r)}")
-    del leaves, levels, cur
+    log(f"[keccak] keccak_pairs at one pair (the draw): "
+        f"{pairs['draw']['ms']:.4f} ms kernel, "
+        f"{pairs['draw']['plain_ms']:.4f} ms plain, "
+        f"{bound_text(pairs['draw'])}")
+    del leaves
 
     # K3: batches of 2^20 nonces, a hit inside each of two, none in a third
     size = 1 << 20
@@ -887,19 +926,36 @@ def phase_keccak(torch, dev) -> dict:
 SCAN_SHAPES = (4 << FULL_LOG, 3 << FULL_LOG, 3 << LDE_LOG)
 SCAN_SMALL = (0, 1, 2, 3, 255, 256, 257, 1023, 1024, 1025, 4097, 65535,
               65536, 65537, 70001)
-SCAN_KERNELS = {"mont_batch_inverse": ("inv_forward_kernel",
+# H5 also at fib(280000)'s DEEP inverse, and at 1 and 2^16 elements, where
+# its fixed part (the launches and the root's inverse) dominates
+INVERSE_EXTRA = (3 << (MEMORY_LOG + 2), 1, 1 << 16)
+SCAN_KERNELS = {"mont_batch_inverse": ("inv_reduce_kernel",
                                       "inv_totals_kernel",
-                                      "inv_backward_kernel"),
+                                      "inv_apply_kernel"),
                 "mont_prefix_product": ("prefix_reduce_kernel",
                                         "prefix_totals_kernel",
                                         "prefix_scan_kernel")}
-FERMAT_PRODUCTS = 251 + 193  # a^(p - 2): squarings and products
+
+
+def root_products() -> int:
+    """Products of H5's root inverse (cuda_scan.root_inverse's chains)."""
+    from lambdaworks_cairo_prover_tpu_torch.field import cuda_scan as cs
+
+    count = [0]
+
+    def mul(a, b):
+        count[0] += 1
+        return a
+
+    cs.root_inverse(1, mul)
+    return count[0]
 
 
 def scan_input(torch, n: int, dev, plant: bool, all_zero: bool = False):
     """(16, n) seeded canonical elements on the card, 0, 1 and p - 1 last;
-    where ``plant``, zeros also at the first and last places of H5's chains
-    (and about the first tile's end)."""
+    where ``plant``, zeros also at the edges of H5's first runs and tiles,
+    in the middle and a tile before the end (and about H6's first tile's
+    end)."""
     from lambdaworks_cairo_prover_tpu_torch.field import cuda_scan as cs
 
     if n < 3:
@@ -909,8 +965,8 @@ def scan_input(torch, n: int, dev, plant: bool, all_zero: bool = False):
     if all_zero:
         return torch.zeros_like(x).contiguous()
     if n and plant:
-        k = cs.inverse_plan(n)[0]
-        for e in (0, k - 1, k, n // 2, n - k, cs.TILE - 1, cs.TILE):
+        for e in (0, cs.RUN - 1, cs.RUN, cs.INV_TILE - 1, cs.INV_TILE,
+                  n // 2, n - cs.INV_TILE, cs.TILE - 1, cs.TILE):
             if 0 <= e < n - 1:
                 x[:, e] = 0
     return x.contiguous()
@@ -919,7 +975,8 @@ def scan_input(torch, n: int, dev, plant: bool, all_zero: bool = False):
 def phase_scan(torch, dev) -> dict:
     """H5 mont_batch_inverse and H6 mont_prefix_product against their plain
     versions on the card, bit for bit: at the path's shapes (SCAN_SHAPES,
-    and H5 at fib(280000)'s DEEP inverse, 3 * 2^23) with zeros planted, at
+    and H5 at fib(280000)'s DEEP inverse, 3 * 2^23, and at 1 and 2^16
+    elements for its fixed part) with zeros planted, at
     small and ragged sizes, on all zeros; against Python ints on a sample.
     Their times against the bound, the plain version and the route they
     replaced (the chunked loop over H1, whose launches are counted), and
@@ -934,10 +991,13 @@ def phase_scan(torch, dev) -> dict:
     build = {name: {} for name in SCAN_KERNELS}
     for name, names in SCAN_KERNELS.items():
         for kernel in names:
-            regs = [v for k, v in ptxas.items() if kernel in k]
-            require(len(regs) == 1, f"{kernel}: not in the build's report")
-            build[name][kernel] = regs[0]
-            log(f"[scan] {kernel}: {regs[0]}")
+            # H5's tile passes are templates: the 16-byte-load instance and
+            # the one for ragged n
+            regs = {k: v for k, v in ptxas.items() if kernel in k}
+            require(regs, f"{kernel}: not in the build's report")
+            for k, v in regs.items():
+                build[name][k] = v
+                log(f"[scan] {kernel} ({k}): {v}")
     kernels = {"mont_batch_inverse": (cs.mont_batch_inverse,
                                       cs.batch_inverse_plain),
                "mont_prefix_product": (cs.mont_prefix_product,
@@ -971,15 +1031,16 @@ def phase_scan(torch, dev) -> dict:
 
     records = {name: [] for name in kernels}
     shapes = [(name, n) for n in SCAN_SHAPES for name in kernels]
-    shapes.append(("mont_batch_inverse", 3 << (MEMORY_LOG + 2)))
+    shapes += [("mont_batch_inverse", n) for n in INVERSE_EXTRA]
+    root_ops = root_products()
     for name, n in shapes:
         x = scan_input(torch, n, dev, planted(name))
         kernel, plain = kernels[name]
         got, plain_ms = compare(name, x, f"(16, {n})")
         # Python ints on a sample: the first and last elements and around
         # the planted zeros
-        idx = sorted({*range(4), *range(n - 4, n), n // 2 - 1, n // 2,
-                      n // 2 + 1})
+        idx = sorted(e for e in {*range(4), *range(n - 4, n), n // 2 - 1,
+                                 n // 2, n // 2 + 1} if 0 <= e < n)
         xs, gs = fd.to_ints(x[:, idx]), fd.to_ints(got[:, idx])
         if name == "mont_batch_inverse":
             ok = gs == [pow(v, P - 2, P) for v in xs]
@@ -992,9 +1053,9 @@ def phase_scan(torch, dev) -> dict:
         if name == "mont_batch_inverse":
             k, q, mid_blocks = cs.inverse_plan(n)
             # the Montgomery trick: 3 products a nonzero element, one
-            # inversion; the totals read and written twice
-            ops = OPS_MUL * (3 * nonzero + FERMAT_PRODUCTS)
-            plan = {"chunks": k, "totals_a_thread": q,
+            # inversion
+            ops = OPS_MUL * (3 * nonzero + root_ops)
+            plan = {"tiles": k, "totals_a_thread": q,
                     "totals_blocks": mid_blocks}
         else:
             ops = OPS_MUL * (n - 1)

@@ -9,7 +9,8 @@
 //   K1  row leaves: Keccak-256 of the 32-byte big-endian encodings of a
 //       row's c felts, read from (16, c, n) int32 canonical limbs with any
 //       strides, one digest (4 int64 lanes) a row.
-//   K2  Merkle parents: Keccak-256(left || right) of (2k, 4) digests.
+//   K2  Merkle nodes: Keccak-256(left || right) of (2k, 4) digests, one
+//       level or every level of a tree, in one launch.
 //   K3  grinding: Keccak-256(challenge || nonce_le_u64) for the nonces
 //       start .. start + size - 1; the first index whose lane 0 passes the
 //       mask test is written into *first by atomicMin (the caller sets it
@@ -22,7 +23,8 @@
 // one thread a message, the 25 lanes of the state in registers, every
 // round unrolled so that each lane index and rotation amount is a constant,
 // 64-bit rotations as two funnel shifts, chi as a ^ (~b & c) (one LOP3 a
-// word).  No shared memory: nothing is reused between messages.
+// word).  K1 and K3 use no shared memory: nothing is reused between
+// messages.
 //
 // K1's message is never formed in memory.  Lane k (0..3) of a felt's
 // encoding holds BE bytes 8k .. 8k+7, i.e. limbs 15-4k .. 12-4k each with
@@ -34,6 +36,24 @@
 // last block's lane 16 (a message of 17 felts or 34 ends on a block and the
 // padding fills a block of its own).  Consecutive threads take consecutive
 // rows, so with a unit row stride every limb load of a warp is one run.
+//
+// K2 builds a whole Merkle tree in one launch (and one level, for the FRI
+// chain's draw).  Its first blocks each take 512 leaves: 256 threads hash
+// the 256 pairs from device memory, keep the parents in shared memory (8 KB)
+// and hash the next level there, behind __syncthreads, writing both levels
+// out.  A launch a level costs the host some 25 us a launch, and the card a
+// launch gap and a permutation's latency (some 6 us for a lone warp) a
+// level.  Resolving many levels in every block instead idles its upper
+// levels' warps while they hold their registers: on the H100 a launch over
+// 2^21 leaves took a tenth longer at 3 levels a block than a launch a
+// level, a sixth longer at 4.  So a task resolves 2 levels (the second
+// keeps half the warps busy, which cost nothing measurable), and of each 4
+// tasks whose 4 x 128 nodes make the next task's 512 children, the block
+// that finishes last (an atomic count behind __threadfence) goes on with
+// that task, reading its children from L2; the others exit and free their
+// SM.  The task over the last 512 or fewer children resolves all their
+// levels, up to L = kTreeLevels = 9, to the root.  Bound: the n - 1
+// permutations of a tree over n leaves.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -43,6 +63,17 @@ typedef unsigned long long u64;
 
 constexpr int kRate = 17;       // lanes of a 136-byte block
 constexpr int kThreads = 128;   // a thread holds some 100 registers
+// K2: threads a block, the children of a task (log2 of it: the levels a
+// block resolves at most), the levels a task resolves below the top, and
+// the tasks whose nodes make one task above them
+constexpr int kTreeThreads = 256;
+constexpr int kTreeChunk = 2 * kTreeThreads;
+constexpr int kTreeLevels = 9;
+constexpr int kTreeStep = 2;
+constexpr int kTreeGroup = 4;
+static_assert(kTreeChunk == 1 << kTreeLevels, "a block's subtree");
+static_assert(kTreeGroup * (kTreeChunk >> kTreeStep) == kTreeChunk,
+              "a group's nodes make a task");
 constexpr u64 kPadLast = 0x8000000000000000ULL;
 
 __constant__ u64 kRoundConstants[24] = {
@@ -146,22 +177,91 @@ keccak_rows_kernel(const int32_t* __restrict__ limbs, long long ls, long long cs
   for (int j = 0; j < 4; ++j) o[j] = s[j];
 }
 
-__global__ void __launch_bounds__(kThreads)
-keccak_pairs_kernel(const u64* __restrict__ in, long long k, u64* __restrict__ out) {
-  const long long node = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (node >= k) return;
-  const u64* p = in + node * 8;
-  u64 s[25];
+// Node lv of the tree above n_in children (n_in a power of two, or lv = 1):
+// level lv starts at node n_in - (n_in >> (lv - 1)) of `out`.
+__device__ __forceinline__ long long level_start(long long n_in, int lv) {
+  return n_in - (n_in >> (lv - 1));
+}
+
+// The tree above n_in child digests, `levels` levels of it (1, or all when
+// n_in is a power of two), in one launch.  A task is a chunk of kTreeChunk
+// children at level lv0 (the leaves: lv0 = 0): thread t of its block hashes
+// children 2t and 2t + 1, and each further level's thread t nodes 2t and
+// 2t + 1 of the level below, kept in shared memory behind __syncthreads.  A
+// task resolves kTreeStep levels and writes them out; of each group of
+// kTreeGroup tasks (their kTreeChunk nodes are the next task's children)
+// the block that finishes last, told by an atomic count behind a fence,
+// goes on with that task, reading its children from L2, while the others
+// exit and free their SM for other chunks.  The task over the last
+// kTreeChunk or fewer children resolves every level left, to the root.
+__global__ void __launch_bounds__(kTreeThreads)
+keccak_pairs_kernel(const u64* __restrict__ in, long long n_in, int levels,
+                    u64* __restrict__ out, unsigned int* __restrict__ counts) {
+  __shared__ u64 node[kTreeThreads][4];
+  __shared__ int go_on;
+  const int t = threadIdx.x;
+  long long chunk = blockIdx.x, count = n_in, first_count = 0;
+  int lv0 = 0;
+#pragma unroll 1
+  for (;;) {
+    const long long base = chunk * kTreeChunk;
+    const int width = count - base < kTreeChunk ? (int)(count - base) : kTreeChunk;
+    const bool top = count <= kTreeChunk;
+    int todo = top ? 31 - __clz(width) : kTreeStep;
+    if (todo > levels - lv0) todo = levels - lv0;
+    const u64* src = lv0 == 0 ? in : out + level_start(n_in, lv0) * 4;
+#pragma unroll 1
+    for (int lv = 1; lv <= todo; ++lv) {
+      const bool active = t < (width >> lv);
+      u64 s[25];
+      if (active) {
+        if (lv > 1) {
 #pragma unroll
-  for (int i = 0; i < 8; ++i) s[i] = __ldg(p + i);
+          for (int i = 0; i < 4; ++i) {
+            s[i] = node[2 * t][i];
+            s[4 + i] = node[2 * t + 1][i];
+          }
+        } else if (lv0 == 0) {
+          const u64* p = src + (base + 2 * t) * 4;
 #pragma unroll
-  for (int i = 8; i < 25; ++i) s[i] = 0;
-  s[8] = 0x01;  // a 64-byte message
-  s[kRate - 1] = kPadLast;
-  keccak_f(s);
-  u64* o = out + node * 4;
+          for (int i = 0; i < 8; ++i) s[i] = __ldg(p + i);
+        } else {  // written by other blocks of this launch: from L2
+          const u64* p = src + (base + 2 * t) * 4;
 #pragma unroll
-  for (int j = 0; j < 4; ++j) o[j] = s[j];
+          for (int i = 0; i < 8; ++i) s[i] = __ldcg(p + i);
+        }
+#pragma unroll
+        for (int i = 8; i < 25; ++i) s[i] = 0;
+        s[8] = 0x01;  // a 64-byte message
+        s[kRate - 1] = kPadLast;
+        keccak_f(s);
+      }
+      if (lv > 1) __syncthreads();  // the level below is read before it is rewritten
+      if (active) {
+        u64* o = out + (level_start(n_in, lv0 + lv) + (base >> lv) + t) * 4;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          o[j] = s[j];
+          node[t][j] = s[j];
+        }
+      }
+      __syncthreads();
+    }
+    if (top || lv0 + todo == levels) return;
+    // the group's count: its last block goes on
+    const long long tasks = count / kTreeChunk;
+    const long long group = tasks < kTreeGroup ? tasks : kTreeGroup;
+    __threadfence();
+    __syncthreads();
+    if (t == 0) go_on = atomicAdd(counts + first_count + chunk / group, 1u) == group - 1;
+    __syncthreads();
+    if (!go_on) return;
+    __threadfence();
+    first_count += tasks / group;
+    chunk /= group;
+    lv0 += kTreeStep;
+    count >>= kTreeStep;
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -203,12 +303,21 @@ int lcp_keccak_rows(const void* limbs, long long ls, long long cs, long long rs,
   return (int)cudaGetLastError();
 }
 
-// (2k, 4) digests -> (k, 4) parents
-int lcp_keccak_pairs(const void* digests, long long k, void* out, void* stream) {
-  if (k < 0 || k > kMaxThreads) return (int)cudaErrorInvalidValue;
-  if (k == 0) return 0;
-  keccak_pairs_kernel<<<grid_for(k), kThreads, 0, (cudaStream_t)stream>>>(
-      (const u64*)digests, k, (u64*)out);
+// (n_in, 4) digests -> the `levels` levels above them, (n_in/2 + ... +
+// n_in/2^levels, 4), one after the other: levels 1 (n_in even), or all of
+// them (n_in a power of two); `counts`: the zeros of the tasks' group
+// counts (hash/cuda_keccak.py:tree_counts), unused for one level
+int lcp_keccak_pairs(const void* digests, long long n_in, int levels, void* out,
+                     void* counts, void* stream) {
+  if (n_in < 0 || n_in / 2 > kMaxThreads || n_in % 2 || levels < 1 ||
+      (levels > 1 && ((n_in & (n_in - 1)) || (1LL << levels) != n_in)))
+    return (int)cudaErrorInvalidValue;
+  if (n_in == 0) return 0;
+  if (levels > 1 && n_in > kTreeChunk && counts == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const unsigned int grid = (unsigned int)((n_in + kTreeChunk - 1) / kTreeChunk);
+  keccak_pairs_kernel<<<grid, kTreeThreads, 0, (cudaStream_t)stream>>>(
+      (const u64*)digests, n_in, levels, (u64*)out, (unsigned int*)counts);
   return (int)cudaGetLastError();
 }
 

@@ -13,27 +13,32 @@
 // Bound on the H100: bytes.  Each element is read once and written once,
 // 128 B in the limb layout, at 3.35 TB/s; the Montgomery trick needs 3
 // products an element and a prefix product 1, at 80 integer instructions
-// each, which stays below the bytes' time.  The totals add 64 B a chunk or a
-// tile.
+// each, which stays below the bytes' time.  The totals add 64 B a tile.
 //
 // What the design does about it: the running product of a scan stays in a
 // thread's registers (8 words, as lax.scan keeps its carry), and every
 // element is read coalesced.
 //
-// H5, three launches.  Any partition into chunks gives the same inverses, so
-// the chunks are chunk-major as in the plain version: thread j of k walks
-// the elements j, j + k, j + 2k, ..., and neighbouring threads read
-// neighbouring words.  (1) inv_forward writes each chunk's running products
-// into `out` and the chunk total into `tot`; (2) inv_totals inverts the k
-// totals in place: a block takes kMidThreads * q of them, each thread q, a
-// product tree of the block's kMidThreads partial products in shared memory,
-// one Fermat inversion at its root (251 squarings, 193 products) and the tree
-// back down; (3) inv_backward walks each chunk backwards from the inverted
-// total and overwrites the running products with the inverses.  No scratch of
-// size n: only 2 k totals.  Zeros are taken as one on the way and map to
-// zero, as in lambdaworks' inplace_batch_inverse.  The loads of the next step
-// are issued before the product of this one, so that a thread's chain keeps a
-// step's loads in flight.
+// H5, three launches, and no running product ever goes to device memory:
+// 192 B an element by design (x read twice, the inverses written once)
+// where the bound counts 128, plus 64 B a tile for the totals.  Any
+// partition gives the same inverses; a tile is kInvTile = 512 contiguous
+// elements, a thread's run kRun = 4 of them (16-byte loads of each limb row
+// where n % 4 == 0).  (1) inv_reduce: each tile's product, zeros taken as
+// one; (2) inv_totals inverts the k tile totals in place: a block takes
+// kMidThreads * q of them, each thread q, a product tree of the block's
+// kMidThreads partial products in shared memory, the root's inverse by two
+// chains in two warps (inv_low, inv_high: 253 dependent products where one
+// Fermat chain took 444) and the tree back down; (3) inv_apply reads its
+// tile again and forms each element's inverse from the tile's inverse and
+// prefix and suffix products of its runs (registers, shuffles, and 512 B of
+// shared memory for the warps' totals).  What holds it under the bytes'
+// time, as far as the H100 runs show, is the products: 7.5 an element (2 in
+// the reduce, 5.5 in the apply; the trick's least is 3), some 130 IMAD each
+// in the SASS, at most two warp-wide IMAD a cycle an SM.  Runs of 8 in
+// shared memory (5.6 products an element) ran slower on the H100, as did
+// persistent blocks that staged the next tile by cp.async.  Zeros map to
+// zero, as in lambdaworks' inplace_batch_inverse.
 //
 // H6, three launches (one when n <= kTile).  A prefix product needs
 // contiguous ranges: a block takes a tile of kTile elements.  (1)
@@ -52,8 +57,16 @@
 
 namespace {
 
-constexpr int kThreads = 256;      // H5's chunk passes: threads a block
+constexpr int kInvThreads = 128;   // H5's tile passes: threads a block
+constexpr int kRun = 4;            // H5: consecutive elements a thread
+constexpr int kInvTile = kInvThreads * kRun;
+constexpr int kInvWarps = kInvThreads / 32;
 constexpr int kMidThreads = 256;   // H5's totals: leaves of a block's tree
+// the root's inverse: p - 2 = 2^kLowBits (2^(kHighShift + kHighTail) +
+// 2^kHighTail) + (2^kLowBits - 1), two chains in two warps
+constexpr int kLowBits = 192;
+constexpr int kHighShift = 55;
+constexpr int kHighTail = 4;
 constexpr int kTileThreads = 256;  // H6: threads a tile
 constexpr int kPerThread = 4;      // H6: consecutive elements a thread scans
 constexpr int kTile = kTileThreads * kPerThread;
@@ -87,40 +100,164 @@ __device__ __forceinline__ void copy8(uint32_t d[8], const uint32_t s[8]) {
   for (int k = 0; k < 8; ++k) d[k] = s[k];
 }
 
-// a^(p - 2), left to right: p - 2 = 2^251 + 2^196 + (2^192 - 1), so after the
-// leading bit every step squares and bits 196 and 0..191 also multiply.
-__device__ __forceinline__ void fermat_inv(const uint32_t a[8], uint32_t r[8]) {
-  uint32_t acc[8];
-  copy8(acc, a);
-#pragma unroll 1
-  for (int bit = 250; bit >= 0; --bit) {
-    lcp::mont_mul(acc, acc, acc);
-    if (bit < 192 || bit == 196) lcp::mont_mul(acc, a, acc);
+// Inclusive product scan over the lanes of a warp.
+__device__ __forceinline__ void warp_scan(uint32_t acc[8]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int off = 1; off < 32; off *= 2) {
+    uint32_t y[8];
+#pragma unroll
+    for (int w = 0; w < 8; ++w) y[w] = __shfl_up_sync(kFull, acc[w], off);
+    if (lane >= off) lcp::mont_mul(y, acc, acc);
   }
-  copy8(r, acc);
+}
+
+// The lane before's value, one on lane 0.
+__device__ __forceinline__ void lane_before(const uint32_t incl[8], uint32_t ex[8]) {
+#pragma unroll
+  for (int w = 0; w < 8; ++w) ex[w] = __shfl_up_sync(kFull, incl[w], 1);
+  if ((threadIdx.x & 31) == 0) set_one(ex);
+}
+
+// a <- a^(2^k): k squarings
+__device__ __forceinline__ void sqr_n(uint32_t a[8], int k) {
+#pragma unroll 1
+  for (; k > 0; --k) lcp::mont_mul(a, a, a);
+}
+
+// The root's inverse a^(p - 2) is lo * hi, two independent chains:
+// lo = a^(2^192 - 1) by a_2k = a_k^(2^k) a_k from a_1 = a, a_k = a^(2^k - 1)
+// (k = 1, 2, 3, 6, ..., 192: 191 squarings, 8 products), and
+// hi = a^(2^192 (2^59 + 2^4)) = ((a^(2^55) a)^(2^4))^(2^192) (251 squarings,
+// 1 product).  One thread a chain: 253 dependent products, where the binary
+// method's single chain took 444.
+__device__ __forceinline__ void inv_low(const uint32_t a[8], uint32_t lo[8]) {
+  uint32_t t[8];
+  copy8(lo, a);
+#pragma unroll 1
+  for (int k = 1; k < 3; ++k) {  // a_2, a_3
+    copy8(t, lo);
+    sqr_n(t, 1);
+    lcp::mont_mul(t, a, lo);
+  }
+#pragma unroll 1
+  for (int k = 3; k < kLowBits; k *= 2) {
+    copy8(t, lo);
+    sqr_n(t, k);
+    lcp::mont_mul(t, lo, lo);
+  }
+}
+
+__device__ __forceinline__ void inv_high(const uint32_t a[8], uint32_t hi[8]) {
+  copy8(hi, a);
+  sqr_n(hi, kHighShift);
+  lcp::mont_mul(hi, a, hi);
+  sqr_n(hi, kHighTail + kLowBits);
 }
 
 // ---------------------------------------------------------------------------
 // H5
 // ---------------------------------------------------------------------------
 
-// Chunk j < k: out[e] = x[j] * x[j + k] * ... * x[e] (zeros as one) for its
-// elements e = j + t k < n, and tot[j] = the last of them.
-__global__ void __launch_bounds__(kThreads)
-    inv_forward_kernel(const int32_t* __restrict__ x, int32_t* __restrict__ out,
-                       long long n, long long k, int32_t* __restrict__ tot) {
-  const long long j = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (j >= k) return;
-  uint32_t acc[8], v[8], next[8];
-  set_one(acc);
-  lcp::load_elem(x, n, j, next);
-  for (long long e = j; e < n; e += k) {
-    copy8(v, next);
-    if (e + k < n) lcp::load_elem(x, n, e + k, next);
-    if (!is_zero(v)) lcp::mont_mul(acc, v, acc);
-    lcp::store_elem(out, n, e, acc);
+// A thread's run: the kRun elements e0 .. e0 + kRun - 1, one past n taken
+// as one.  kVec (n % kRun == 0, x and out 16-byte aligned): a run lies wholly
+// below n or wholly past it, and each limb row of it is one 16-byte load or
+// store, so a warp moves 512 contiguous bytes a row.
+template <bool kVec>
+__device__ __forceinline__ void load_run(const int32_t* __restrict__ x, long long n,
+                                         long long e0, uint32_t v[kRun][8]) {
+  if (kVec && e0 < n) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int4 lo = __ldg(reinterpret_cast<const int4*>(x + (2 * k) * n + e0));
+      const int4 hi = __ldg(reinterpret_cast<const int4*>(x + (2 * k + 1) * n + e0));
+      v[0][k] = ((uint32_t)lo.x & 0xFFFFu) | ((uint32_t)hi.x << 16);
+      v[1][k] = ((uint32_t)lo.y & 0xFFFFu) | ((uint32_t)hi.y << 16);
+      v[2][k] = ((uint32_t)lo.z & 0xFFFFu) | ((uint32_t)hi.z << 16);
+      v[3][k] = ((uint32_t)lo.w & 0xFFFFu) | ((uint32_t)hi.w << 16);
+    }
+    return;
   }
-  lcp::store_elem(tot, k, j, acc);
+#pragma unroll
+  for (int r = 0; r < kRun; ++r) {
+    if (!kVec && e0 + r < n) {
+      lcp::load_elem(x, n, e0 + r, v[r]);
+    } else {
+      set_one(v[r]);
+    }
+  }
+}
+
+template <bool kVec>
+__device__ __forceinline__ void store_run(int32_t* __restrict__ out, long long n,
+                                          long long e0, uint32_t v[kRun][8]) {
+  if (kVec) {
+    if (e0 >= n) return;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int4 lo = make_int4((int)(v[0][k] & 0xFFFFu), (int)(v[1][k] & 0xFFFFu),
+                                (int)(v[2][k] & 0xFFFFu), (int)(v[3][k] & 0xFFFFu));
+      const int4 hi = make_int4((int)(v[0][k] >> 16), (int)(v[1][k] >> 16),
+                                (int)(v[2][k] >> 16), (int)(v[3][k] >> 16));
+      *reinterpret_cast<int4*>(out + (2 * k) * n + e0) = lo;
+      *reinterpret_cast<int4*>(out + (2 * k + 1) * n + e0) = hi;
+    }
+    return;
+  }
+#pragma unroll
+  for (int r = 0; r < kRun; ++r) {
+    if (e0 + r < n) lcp::store_elem(out, n, e0 + r, v[r]);
+  }
+}
+
+// The run's elements with zeros taken as one; bit r of the result is set
+// where element r was zero.
+__device__ __forceinline__ unsigned zeros_as_one(uint32_t v[kRun][8]) {
+  unsigned z = 0;
+#pragma unroll
+  for (int r = 0; r < kRun; ++r) {
+    if (is_zero(v[r])) {
+      set_one(v[r]);
+      z |= 1u << r;
+    }
+  }
+  return z;
+}
+
+// (1) tot[b] = the product of tile b's elements, zeros taken as one.
+template <bool kVec>
+__global__ void __launch_bounds__(kInvThreads)
+    inv_reduce_kernel(const int32_t* __restrict__ x, long long n,
+                      int32_t* __restrict__ tot, long long nb) {
+  __shared__ uint32_t wsum[8][kInvWarps];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  uint32_t v[kRun][8], acc[8];
+  load_run<kVec>(x, n, (long long)blockIdx.x * kInvTile + tid * kRun, v);
+  zeros_as_one(v);
+  lcp::mont_mul(v[0], v[1], acc);
+#pragma unroll
+  for (int r = 2; r < kRun; ++r) lcp::mont_mul(acc, v[r], acc);
+#pragma unroll
+  for (int off = 16; off >= 1; off /= 2) {
+    uint32_t y[8];
+#pragma unroll
+    for (int w = 0; w < 8; ++w) y[w] = __shfl_xor_sync(kFull, acc[w], off);
+    lcp::mont_mul(acc, y, acc);
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int w = 0; w < 8; ++w) wsum[w][warp] = acc[w];
+  }
+  __syncthreads();
+  if (tid == 0) {
+    for (int u = 1; u < kInvWarps; ++u) {
+      uint32_t y[8];
+#pragma unroll
+      for (int w = 0; w < 8; ++w) y[w] = wsum[w][u];
+      lcp::mont_mul(acc, y, acc);
+    }
+    lcp::store_elem(tot, nb, blockIdx.x, acc);
+  }
 }
 
 // Word-major tree node access: node[w][i].
@@ -170,9 +307,20 @@ __global__ void __launch_bounds__(kMidThreads)
     }
     __syncthreads();
   }
-  if (i == 0) {
+  // the root's inverse: lo in thread 0 (warp 0), hi in thread 32 (warp 1)
+  if (i == 0 || i == 32) {
     node_get(node, 1, v);
-    fermat_inv(v, v);
+    if (i == 0) {
+      inv_low(v, l);
+    } else {
+      inv_high(v, r);
+      node_put(node, 0, r);  // node 0 is no node of the tree
+    }
+  }
+  __syncthreads();
+  if (i == 0) {
+    node_get(node, 0, r);
+    lcp::mont_mul(l, r, v);
     node_put(node, 1, v);
   }
   __syncthreads();
@@ -206,39 +354,109 @@ __global__ void __launch_bounds__(kMidThreads)
   }
 }
 
-// Chunk j < k, from its last element down: out[e] = x[e]^-1 (0 for a zero),
-// from the inverted total tinv[j] and the running products in out.
-__global__ void __launch_bounds__(kThreads)
-    inv_backward_kernel(const int32_t* __restrict__ x, int32_t* __restrict__ out,
-                        long long n, long long k, const int32_t* __restrict__ tinv) {
-  const long long j = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (j >= k) return;
-  long long e = j + (n - 1 - j) / k * k;  // the chunk's last element
-  uint32_t carry[8], xv[8], pv[8], nx[8], np[8] = {0}, r[8];
-  lcp::load_elem(tinv, k, j, carry);
-  lcp::load_elem(x, n, e, nx);
-  if (e >= k) lcp::load_elem(out, n, e - k, np);
-  for (;;) {
-    const bool more = e >= k;  // an element before this one in the chunk
-    copy8(xv, nx);
-    copy8(pv, np);
-    if (more) {
-      lcp::load_elem(x, n, e - k, nx);
-      if (e >= 2 * k) lcp::load_elem(out, n, e - 2 * k, np);
-    }
-    if (is_zero(xv)) {
+// (3) out = the inverses of tile b's elements (0 for a zero), from tinv[b],
+// the inverse of the tile's product.  Thread t's run has the prefix products
+// p_0 .. p_3 and total u = p_3; u^-1 is tinv times the products of the
+// other runs of the tile: those before and after t in its warp (a prefix
+// and a suffix scan by shuffles) and those of the warps before and after
+// (warp 0 scans the warps' totals and multiplies in tinv).  The run then
+// goes backwards as the Montgomery trick does: x_r^-1 = c p_(r-1) and c <-
+// c x_r, from c = u^-1.
+template <bool kVec>
+__global__ void __launch_bounds__(kInvThreads)
+    inv_apply_kernel(const int32_t* __restrict__ x, int32_t* __restrict__ out, long long n,
+                     const int32_t* __restrict__ tinv, long long nb) {
+  __shared__ uint32_t wsum[8][kInvWarps];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long long e0 = (long long)blockIdx.x * kInvTile + tid * kRun;
+  uint32_t v[kRun][8], p[kRun - 1][8], pre[8], suf[8], y[8];
+  load_run<kVec>(x, n, e0, v);
+  const unsigned z = zeros_as_one(v);
+  copy8(p[0], v[0]);
 #pragma unroll
-      for (int w = 0; w < 8; ++w) r[w] = 0;
-    } else if (more) {
-      lcp::mont_mul(carry, pv, r);
-      lcp::mont_mul(carry, xv, carry);
-    } else {
-      copy8(r, carry);
+  for (int r = 1; r < kRun - 1; ++r) lcp::mont_mul(p[r - 1], v[r], p[r]);
+  lcp::mont_mul(p[kRun - 2], v[kRun - 1], pre);
+  copy8(suf, pre);
+  // inclusive prefix (pre) and suffix (suf) products of the warp's runs
+#pragma unroll
+  for (int off = 1; off < 32; off *= 2) {
+    uint32_t d[8];
+#pragma unroll
+    for (int w = 0; w < 8; ++w) {
+      y[w] = __shfl_up_sync(kFull, pre[w], off);
+      d[w] = __shfl_down_sync(kFull, suf[w], off);
     }
-    lcp::store_elem(out, n, e, r);
-    if (!more) break;
-    e -= k;
+    if (lane >= off) lcp::mont_mul(y, pre, pre);
+    if (lane + off < 32) lcp::mont_mul(suf, d, suf);
   }
+  if (lane == 31) {
+#pragma unroll
+    for (int w = 0; w < 8; ++w) wsum[w][warp] = pre[w];
+  }
+  // exclusive: the runs before and after this one in the warp
+  lane_before(pre, pre);
+#pragma unroll
+  for (int w = 0; w < 8; ++w) y[w] = __shfl_down_sync(kFull, suf[w], 1);
+  if (lane == 31) {
+    set_one(suf);
+  } else {
+    copy8(suf, y);
+  }
+  lcp::mont_mul(pre, suf, pre);
+  __syncthreads();
+  if (warp == 0) {  // each warp's tinv * (the warps before) * (the warps after)
+    uint32_t a[8], b[8], t[8];
+    if (lane < kInvWarps) {
+#pragma unroll
+      for (int w = 0; w < 8; ++w) a[w] = wsum[w][lane];
+    } else {
+      set_one(a);
+    }
+    copy8(b, a);
+#pragma unroll
+    for (int off = 1; off < kInvWarps; off *= 2) {
+      uint32_t d[8];
+#pragma unroll
+      for (int w = 0; w < 8; ++w) {
+        t[w] = __shfl_up_sync(kFull, a[w], off);
+        d[w] = __shfl_down_sync(kFull, b[w], off);
+      }
+      if (lane >= off) lcp::mont_mul(t, a, a);
+      if (lane + off < kInvWarps) lcp::mont_mul(b, d, b);
+    }
+    lane_before(a, a);
+#pragma unroll
+    for (int w = 0; w < 8; ++w) t[w] = __shfl_down_sync(kFull, b[w], 1);
+    if (lane >= kInvWarps - 1) set_one(t);
+    lcp::load_elem(tinv, nb, blockIdx.x, b);
+    lcp::mont_mul(a, t, a);
+    lcp::mont_mul(a, b, a);
+    __syncwarp();
+    if (lane < kInvWarps) {
+#pragma unroll
+      for (int w = 0; w < 8; ++w) wsum[w][lane] = a[w];
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int w = 0; w < 8; ++w) y[w] = wsum[w][warp];
+  lcp::mont_mul(pre, y, pre);  // u^-1
+#pragma unroll
+  for (int r = kRun - 1; r >= 1; --r) {
+    uint32_t inv[8];
+    lcp::mont_mul(pre, p[r - 1], inv);
+    lcp::mont_mul(pre, v[r], pre);
+    copy8(v[r], inv);
+  }
+  copy8(v[0], pre);
+#pragma unroll
+  for (int r = 0; r < kRun; ++r) {
+    if (z & (1u << r)) {
+#pragma unroll
+      for (int w = 0; w < 8; ++w) v[r][w] = 0;
+    }
+  }
+  store_run<kVec>(out, n, e0, v);
 }
 
 // ---------------------------------------------------------------------------
@@ -256,25 +474,6 @@ __device__ __forceinline__ void tile_put(uint32_t (*tile)[kPitch], int e,
                                          const uint32_t w[8]) {
 #pragma unroll
   for (int k = 0; k < 8; ++k) tile[k][slot(e)] = w[k];
-}
-
-// Inclusive product scan over the lanes of a warp.
-__device__ __forceinline__ void warp_scan(uint32_t acc[8]) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int off = 1; off < 32; off *= 2) {
-    uint32_t y[8];
-#pragma unroll
-    for (int w = 0; w < 8; ++w) y[w] = __shfl_up_sync(kFull, acc[w], off);
-    if (lane >= off) lcp::mont_mul(y, acc, acc);
-  }
-}
-
-// The lane before's value, one on lane 0.
-__device__ __forceinline__ void lane_before(const uint32_t incl[8], uint32_t ex[8]) {
-#pragma unroll
-  for (int w = 0; w < 8; ++w) ex[w] = __shfl_up_sync(kFull, incl[w], 1);
-  if ((threadIdx.x & 31) == 0) set_one(ex);
 }
 
 // dst[base + e] = carry * src[base] * ... * src[base + e] for the elements
@@ -433,23 +632,34 @@ unsigned int blocks(long long n, long long per_block) {
 
 extern "C" {
 
-// x, out: (16, n) limbs; k chunks (1 <= k <= n); tot, pre: (16, k) scratch;
-// q totals a thread of inv_totals.
+// x, out: (16, n) limbs; k = ceil(n / kInvTile) tiles; tot, pre: (16, k)
+// scratch; q totals a thread of inv_totals.
 int lcp_batch_inverse(const void* x, void* out, long long n, long long k, long long q,
                       void* tot, void* pre, void* stream) {
   if (n <= 0) return 0;
-  if (k < 1 || k > n || q < 1) return (int)cudaErrorInvalidValue;
+  if (k != (n + kInvTile - 1) / kInvTile || q < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  inv_forward_kernel<<<blocks(k, kThreads), kThreads, 0, s>>>(
-      (const int32_t*)x, (int32_t*)out, n, k, (int32_t*)tot);
+  const bool vec = n % kRun == 0 && (uintptr_t)x % 16 == 0 && (uintptr_t)out % 16 == 0;
+  if (vec) {
+    inv_reduce_kernel<true><<<(unsigned int)k, kInvThreads, 0, s>>>(
+        (const int32_t*)x, n, (int32_t*)tot, k);
+  } else {
+    inv_reduce_kernel<false><<<(unsigned int)k, kInvThreads, 0, s>>>(
+        (const int32_t*)x, n, (int32_t*)tot, k);
+  }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   inv_totals_kernel<<<blocks(k, kMidThreads * q), kMidThreads, 0, s>>>(
       (int32_t*)tot, (int32_t*)pre, k, q);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  inv_backward_kernel<<<blocks(k, kThreads), kThreads, 0, s>>>(
-      (const int32_t*)x, (int32_t*)out, n, k, (const int32_t*)tot);
+  if (vec) {
+    inv_apply_kernel<true><<<(unsigned int)k, kInvThreads, 0, s>>>(
+        (const int32_t*)x, (int32_t*)out, n, (const int32_t*)tot, k);
+  } else {
+    inv_apply_kernel<false><<<(unsigned int)k, kInvThreads, 0, s>>>(
+        (const int32_t*)x, (int32_t*)out, n, (const int32_t*)tot, k);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -42,7 +42,7 @@ _SIGNATURES = {
     "lcp_ntt_dif_stages": [_P, _P, _LL, _I, _I, _I, _P, _P],
     "lcp_ntt_dif_local": [_P, _P, _LL, _I, _I, _I, _P, _P],
     "lcp_keccak_rows": [_P, _LL, _LL, _LL, _I, _LL, _P, _P],
-    "lcp_keccak_pairs": [_P, _LL, _P, _P],
+    "lcp_keccak_pairs": [_P, _LL, _I, _P, _P, _P],
     "lcp_keccak_grind": [_U64, _U64, _U64, _U64, _U64, _LL, _U64, _P, _P],
     "lcp_batch_inverse": [_P, _P, _LL, _LL, _LL, _P, _P, _P],
     "lcp_prefix_product": [_P, _P, _LL, _P, _P],

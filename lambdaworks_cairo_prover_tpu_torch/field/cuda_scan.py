@@ -6,7 +6,9 @@ They replace the JAX package's field/device.py:batch_inverse (its two
 totals) and prefix_product (its ``lax.scan``, ``associative_scan`` and the
 offset product): on the TPU each is one compiled device loop; here each is
 one call of three kernel launches, where the port used to launch H1 once a
-scan step (1,209 times a batch inverse, 397 a prefix product).
+scan step (1,209 times a batch inverse, 397 a prefix product).  H5 keeps
+no running product in device memory: it reads x twice and writes the
+inverses once.
 
 Operands are ``(16, n)`` int32 limb tensors (16-bit limbs, Montgomery form,
 canonical).
@@ -34,14 +36,19 @@ from .cuda_field import mul_plain
 from .params import LIMB_MASK, N_LIMBS, P, R, SPARSE_P
 
 # csrc/scan.cu's block shapes (the CPU test reads them back from the source)
+INV_THREADS = 128   # kInvThreads: H5's tile passes, threads a block
+RUN = 4             # kRun: consecutive elements an H5 thread takes
+INV_TILE = INV_THREADS * RUN
 MID_THREADS = 256   # kMidThreads: H5's totals, leaves of a block's tree
 TILE_THREADS = 256  # kTileThreads: H6's threads a tile
 PER_THREAD = 4      # kPerThread: consecutive elements an H6 thread scans
 TILE = TILE_THREADS * PER_THREAD
-# H5's chunks at most: some 500 threads on each of the H100's 132 SMs, and
-# the totals' pass then takes 1 or 2 totals a thread in as many blocks
-MAX_CHUNKS = 1 << 16
+# H5's totals pass takes 1 or more totals a thread in at most this many
+# blocks, one for each of the H100's 132 SMs
 MID_BLOCKS = 132
+# H5's root inverse (kLowBits, kHighShift, kHighTail): p - 2 = 2^192 (2^59 +
+# 2^4) + (2^192 - 1), two chains (root_inverse)
+LOW_BITS, HIGH_SHIFT, HIGH_TAIL = 192, 55, 4
 
 # ---------------------------------------------------------------------------
 # Plain versions: the chunked loops over mul_plain
@@ -65,6 +72,27 @@ def fermat(a: torch.Tensor, mul) -> torch.Tensor:
         if bit == "1":
             acc = mul(acc, a)
     return acc
+
+
+def root_inverse(a, mul):
+    """a^(p - 2) for the Stark252 prime by csrc/scan.cu's two chains
+    (inv_low, inv_high), with the product ``mul`` (Python ints or limb
+    tensors): lo = a^(2^192 - 1) by a_2k = a_k^(2^k) a_k from a_1 = a, and
+    hi = ((a^(2^55) a)^(2^4))^(2^192)."""
+    def sqr_n(v, k):
+        for _ in range(k):
+            v = mul(v, v)
+        return v
+
+    lo = a
+    for _ in range(2):  # a_2, a_3
+        lo = mul(sqr_n(lo, 1), a)
+    k = 3
+    while k < LOW_BITS:
+        lo = mul(sqr_n(lo, k), lo)
+        k *= 2
+    hi = sqr_n(mul(sqr_n(a, HIGH_SHIFT), a), HIGH_TAIL + LOW_BITS)
+    return mul(lo, hi)
 
 
 def _chunk_len(n: int) -> int:
@@ -137,10 +165,10 @@ def prefix_product_plain(x: torch.Tensor, mul=mul_plain) -> torch.Tensor:
 
 
 def inverse_plan(n: int) -> tuple:
-    """H5's schedule for n >= 1 elements: (k, q, mid_blocks).  k chunks,
-    chunk j holding the elements j, j + k, ...; the k totals go to
-    mid_blocks blocks of MID_THREADS threads, q a thread."""
-    k = min(n, MAX_CHUNKS)
+    """H5's schedule for n >= 1 elements: (k, q, mid_blocks).  k tiles of
+    INV_TILE contiguous elements; their k totals go to mid_blocks blocks of
+    MID_THREADS threads, q a thread."""
+    k = -(-n // INV_TILE)
     q = max(1, -(-k // (MID_THREADS * MID_BLOCKS)))
     return k, q, -(-k // (MID_THREADS * q))
 

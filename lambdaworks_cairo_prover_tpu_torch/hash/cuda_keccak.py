@@ -1,5 +1,6 @@
 """K1 `keccak_rows`, K2 `keccak_pairs` and K3 `keccak_grind`: wrappers of
-the Keccak-256 CUDA kernels (csrc/keccak.cu).
+the Keccak-256 CUDA kernels (csrc/keccak.cu); :func:`keccak_tree` is K2
+over a whole Merkle tree, one launch, :func:`keccak_pairs` over one level.
 
 They replace the JAX package's Keccak, which is jnp under ``jax.jit`` and
 not a Pallas kernel (hash/keccak_device.py: ``_keccak_f`` and
@@ -82,25 +83,73 @@ def keccak_rows(limbs: torch.Tensor) -> torch.Tensor:
 keccak_rows.launches = 0
 
 
+# csrc/keccak.cu's K2 (the CPU test reads them back from the source):
+# threads a block, the levels a block resolves at most (a task's children:
+# 2 ** TREE_LEVELS), the levels a task below the top resolves, and the tasks
+# whose nodes make the next task's children
+TREE_THREADS = 256  # kTreeThreads
+TREE_LEVELS = 9     # kTreeLevels
+TREE_STEP = 2       # kTreeStep
+TREE_GROUP = 4      # kTreeGroup
+
+
+def tree_counts(n: int, chunk: int = 1 << TREE_LEVELS, step: int = TREE_STEP,
+                group: int = TREE_GROUP) -> int:
+    """The group counts K2 takes for the tree over n leaves (a power of
+    two): a round over c > chunk children has c / chunk tasks in groups of
+    ``group`` (or all of them, if fewer), and the next round c / 2^step."""
+    total, c = 0, n
+    while c > chunk:
+        tasks = c // chunk
+        total += tasks // min(group, tasks)
+        c >>= step
+    return total
+
+
 def keccak_pairs(digests: torch.Tensor) -> torch.Tensor:
-    """K2: (2k, 4) int64 digests -> (k, 4), Keccak-256(left || right) of
-    rows 2i and 2i + 1."""
+    """K2 over one level: (2k, 4) int64 digests -> (k, 4),
+    Keccak-256(left || right) of rows 2i and 2i + 1."""
     _check("keccak_pairs", digests, _I64, 2)
-    if digests.shape[1] != 4 or digests.shape[0] % 2:
+    n = digests.shape[0]
+    if digests.shape[1] != 4 or n % 2:
         raise ValueError(f"keccak_pairs: expected (2k, 4) digests, got shape "
                          f"{tuple(digests.shape)}")
-    k = digests.shape[0] // 2
-    out = torch.empty((k, 4), dtype=_I64, device=digests.device)
-    if k == 0:
-        return out
-    src = digests.contiguous()
+    out = torch.empty((n // 2, 4), dtype=_I64, device=digests.device)
+    if n:
+        _launch_pairs(digests.contiguous(), 1, out, None)
+    return out
+
+
+def keccak_tree(leaves: torch.Tensor) -> torch.Tensor:
+    """K2 over a whole Merkle tree, in one launch: every level above (n, 4)
+    leaf digests, n a power of two, as one (n - 1, 4) tensor, level 1 (n/2
+    rows) first and the root last."""
+    _check("keccak_tree", leaves, _I64, 2)
+    n = leaves.shape[0]
+    if leaves.shape[1] != 4 or n & (n - 1):
+        raise ValueError(f"keccak_tree: expected (n, 4) digests, n a power of "
+                         f"two, got shape {tuple(leaves.shape)}")
+    if n <= 1:
+        return leaves[:0]  # a single leaf is its own root
+    out = torch.empty((n - 1, 4), dtype=_I64, device=leaves.device)
+    counts = tree_counts(n)
+    _launch_pairs(leaves.contiguous(), n.bit_length() - 1, out,
+                  torch.zeros(counts, dtype=torch.int32, device=leaves.device)
+                  if counts else None)
+    return out
+
+
+def _launch_pairs(src: torch.Tensor, levels: int, out: torch.Tensor,
+                  counts) -> None:
+    """One K2 launch over the checked digests ``src`` into ``out``."""
     lib = cuda_lib.library()
-    with torch.cuda.device(digests.device):
-        code = lib.lcp_keccak_pairs(src.data_ptr(), k, out.data_ptr(),
-                                    torch.cuda.current_stream().cuda_stream)
+    with torch.cuda.device(src.device):
+        code = lib.lcp_keccak_pairs(
+            src.data_ptr(), src.shape[0], levels, out.data_ptr(),
+            None if counts is None else counts.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
     cuda_lib.check(code, "keccak_pairs")
     keccak_pairs.launches += 1
-    return out
 
 
 keccak_pairs.launches = 0

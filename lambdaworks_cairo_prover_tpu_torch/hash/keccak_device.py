@@ -1,9 +1,10 @@
 """Batched Keccak-256: Merkle leaves and nodes, grinding nonces.
 
 The public functions take CUDA tensors (or a CUDA device) to the Keccak
-kernels of :mod:`.cuda_keccak` (K1 ``keccak_rows``, K2 ``keccak_pairs``, K3
-``keccak_grind``) and CPU ones to their plain versions here (``*_plain``),
-which the tests and the chip check hold the kernels against.
+kernels of :mod:`.cuda_keccak` (K1 ``keccak_rows``, K2 ``keccak_pairs`` over
+one level and ``keccak_tree`` over a tree, K3 ``keccak_grind``) and CPU ones
+to their plain versions here (``*_plain``), which the tests and the chip
+check hold the kernels against.
 
 The plain versions run keccak-f[1600] over a batch of messages at once.
 The state is a (25, n) int64 tensor, one row per 64-bit lane (lane x + 5y),
@@ -184,6 +185,38 @@ def hash_digest_pairs_plain(digests: torch.Tensor) -> torch.Tensor:
     k = digests.shape[0] // 2
     msg = digests.reshape(k, 8).contiguous().view(torch.uint8)  # (k, 64)
     return _absorb(_pad_bytes(msg))
+
+
+def tree_level_sizes(n: int) -> list:
+    """Rows of each level above n leaves, level 1 first and the root last
+    ([] for n <= 1)."""
+    sizes = []
+    while n > 1:
+        n //= 2
+        sizes.append(n)
+    return sizes
+
+
+def hash_tree(leaves: torch.Tensor) -> torch.Tensor:
+    """Every level of the Merkle tree above (n, 4) leaf digests: one (n - 1,
+    4) tensor, the levels of :func:`tree_level_sizes` one after the other.
+    A CUDA tensor goes to K2 (``keccak_tree``: one launch)."""
+    if leaves.device.type == "cpu":
+        return hash_tree_plain(leaves)
+    return ck.keccak_tree(leaves)
+
+
+def hash_tree_plain(leaves: torch.Tensor) -> torch.Tensor:
+    """K2's plain version of :func:`hash_tree`: a level at a time, each by
+    :func:`hash_digest_pairs_plain`."""
+    sizes = tree_level_sizes(leaves.shape[0])
+    buf = torch.empty((sum(sizes), 4), dtype=torch.int64, device=leaves.device)
+    cur, off = leaves, 0
+    for size in sizes:
+        buf[off:off + size] = hash_digest_pairs_plain(cur)
+        cur = buf[off:off + size]
+        off += size
+    return buf
 
 
 def digest_words_to_masked_limbs(digest: torch.Tensor) -> torch.Tensor:

@@ -20,12 +20,13 @@ from .keccak_host import keccak256, merkle_fold
 
 
 def tree_levels(leaves: torch.Tensor) -> list:
-    """[leaves (n, 4), ..., root (1, 4)]."""
-    levels = [leaves]
-    cur = leaves
-    while cur.shape[0] > 1:
-        cur = kd.hash_digest_pairs(cur)
-        levels.append(cur)
+    """[leaves (n, 4), level 1, ..., root (1, 4)]: the levels above the
+    leaves are views into the one (n - 1, 4) tensor of ``hash_tree``."""
+    buf = kd.hash_tree(leaves)
+    levels, off = [leaves], 0
+    for size in kd.tree_level_sizes(leaves.shape[0]):
+        levels.append(buf[off:off + size])
+        off += size
     return levels
 
 

@@ -19,9 +19,12 @@ import torch
 import jax.numpy as jnp
 
 from lambdaworks_cairo_prover_tpu.hash import keccak_device as jkd
+from lambdaworks_cairo_prover_tpu.hash.merkle import MerkleTree as JaxTree
 from lambdaworks_cairo_prover_tpu_torch import cuda_lib
 from lambdaworks_cairo_prover_tpu_torch.hash import cuda_keccak as ck
 from lambdaworks_cairo_prover_tpu_torch.hash import keccak_device as tkd
+from lambdaworks_cairo_prover_tpu_torch.hash.merkle import (MerkleTree,
+                                                           tree_levels)
 from lambdaworks_cairo_prover_tpu_torch.interop import limbs_from_numpy
 from lambdaworks_cairo_prover_tpu_torch.prover.grinding import (
     leading_zeros_of_nonce)
@@ -120,6 +123,131 @@ def test_parent_nodes_match_jax(k):
     assert torch.equal(tkd.hash_digest_pairs(digests), got)
 
 
+def mirror_tree(leaves: torch.Tensor, threads: int, step: int,
+                group: int) -> tuple:
+    """csrc/keccak.cu's K2 over a whole tree (cuda_keccak.keccak_tree) with
+    blocks of ``threads`` threads, walked with the plain pair hash.  A task
+    over chunk = 2 threads children at level lv0: thread t hashes children
+    2t, 2t + 1 from the level's nodes, then nodes 2t, 2t + 1 of the block's
+    shared memory, ``step`` levels (all the rest for the top task, over
+    chunk or fewer children); level lv's node i goes to node n - (n >>
+    (lv - 1)) + i.  Tasks c of a group of ``group`` (fewer if the round has
+    fewer) make task c // group of the next round, counted at counter
+    first + c // group.  Returns the (n - 1, 4) buffer, the rounds' tasks
+    and the counters used."""
+    n = leaves.shape[0]
+    chunk = 2 * threads
+    buf = torch.zeros((max(n - 1, 0), 4), dtype=torch.int64)
+
+    def start(lv):
+        return n - (n >> (lv - 1))
+
+    rounds, counts = [], 0
+    lv0, count = 0, n
+    while count > 1:
+        tasks = -(-count // chunk)
+        top = count <= chunk
+        rounds.append(tasks)
+        src = leaves if lv0 == 0 else buf[start(lv0):start(lv0) + count]
+        widths = [min(chunk, count - c * chunk) for c in range(tasks)]
+        todo = widths[0].bit_length() - 1 if top else step
+        # the blocks' shared memory, all tasks side by side: task c's nodes
+        # of the level below at c * (chunk >> (lv - 1)) ..
+        node = None
+        for lv in range(1, todo + 1):
+            left, dst = [], []
+            for c, width in enumerate(widths):
+                base = c * chunk
+                for t in range(width >> lv):
+                    left.append(base + 2 * t if lv == 1
+                                else c * (chunk >> (lv - 1)) + 2 * t)
+                    dst.append(start(lv0 + lv) + (base >> lv) + t)
+            below = src if lv == 1 else node
+            ix = torch.tensor(left)
+            pairs = torch.stack([below[ix], below[ix + 1]], 1)
+            parents = tkd.hash_digest_pairs_plain(pairs.reshape(-1, 4))
+            buf[dst] = parents
+            node = torch.zeros((tasks * (chunk >> lv), 4), dtype=torch.int64)
+            node[[c * (chunk >> lv) + t for c, width in enumerate(widths)
+                  for t in range(width >> lv)]] = parents
+        if top:
+            break
+        counts += tasks // min(group, tasks)
+        lv0, count = lv0 + step, count >> step
+    return buf, rounds, counts
+
+
+@pytest.mark.parametrize("log_n", range(11))
+def test_tree_launches_match_jax(log_n):
+    """The levels, root and authentication paths of a tree over 2^log_n
+    seeded leaves: the port's tree_levels (the plain route) and K2's task
+    schedule walked by mirror_tree, at the kernel's block and at blocks of
+    2, 4 and 8 threads with other steps and groups (so that a few leaves
+    already span several rounds), against the JAX package's MerkleTree."""
+    n = 1 << log_n
+    words = np.random.default_rng(300 + log_n).integers(
+        0, 1 << 32, size=(n, 8), dtype=np.uint32)
+    leaves = torch.from_numpy(words.view("<i8").copy())
+    jtree = JaxTree._build_from_leaves(jnp.asarray(words))
+    want = [jax_bytes(lv) for lv in jtree.levels[1:]]
+    tree = MerkleTree(tree_levels(leaves))
+    assert [port_bytes(lv) for lv in tree.levels[1:]] == want
+    assert tree.root == jtree.root
+    queries = sorted({0, n - 1, n // 3, (5 * n) // 7})
+    # a single leaf has empty paths (the JAX package gathers no level then)
+    assert tree.get_proofs(queries) == (
+        jtree.get_proofs(queries) if n > 1 else [[]])
+    for threads, step, group in ((ck.TREE_THREADS, ck.TREE_STEP,
+                                  ck.TREE_GROUP), (2, 1, 2), (4, 2, 4),
+                                 (8, 2, 4), (8, 3, 8)):
+        buf, rounds, counts = mirror_tree(leaves, threads, step, group)
+        assert port_bytes(buf) == b"".join(want)
+        assert counts == ck.tree_counts(n, 2 * threads, step, group)
+        # every round but the top has whole tasks, grouped exactly
+        assert all(r % min(group, r) == 0 for r in rounds[:-1])
+
+
+def test_tree_block_matches_the_source():
+    """K2's block, task and group as csrc/keccak.cu bakes them, and the
+    group counts at the proves' tree sizes (none up to 2^9 leaves: one
+    task)."""
+    with open(os.path.join(cuda_lib.CSRC_DIR, "keccak.cu")) as f:
+        consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", f.read()))
+    assert int(consts["kTreeThreads"]) == ck.TREE_THREADS
+    assert int(consts["kTreeLevels"]) == ck.TREE_LEVELS
+    assert int(consts["kTreeStep"]) == ck.TREE_STEP
+    assert int(consts["kTreeGroup"]) == ck.TREE_GROUP
+    assert 2 * ck.TREE_THREADS == 1 << ck.TREE_LEVELS
+    assert ck.TREE_GROUP * (ck.TREE_THREADS * 2 >> ck.TREE_STEP) == \
+        2 * ck.TREE_THREADS
+    counts = {n: ck.tree_counts(n) for n in (1, 2, 4, 1 << 9, 1 << 10,
+                                              1 << 11, 1 << 13, 1 << 21)}
+    # 2^21: rounds over 2^21, 2^19, ..., 2^11 children: 1024 + ... + 1
+    assert counts == {1: 0, 2: 0, 4: 0, 1 << 9: 0, 1 << 10: 1, 1 << 11: 1,
+                      1 << 13: 4 + 1, 1 << 21: 1365}
+
+
+def test_tree_levels_are_views_of_one_buffer():
+    """tree_levels: [leaves, level 1, ..., root], the levels above the
+    leaves at offsets 0, n/2, n/2 + n/4, ... of one (n - 1, 4) tensor."""
+    n = 64
+    leaves = torch.from_numpy(np.random.default_rng(310).integers(
+        -2**62, 2**62, size=(n, 4), dtype=np.int64))
+    levels = tree_levels(leaves)
+    assert levels[0] is leaves
+    assert [lv.shape[0] for lv in levels] == [64, 32, 16, 8, 4, 2, 1]
+    storage = levels[1].untyped_storage().data_ptr()
+    off = 0
+    for lv in levels[1:]:
+        assert lv.untyped_storage().data_ptr() == storage
+        assert lv.storage_offset() == 4 * off and lv.is_contiguous()
+        off += lv.shape[0]
+    assert levels[1].untyped_storage().nbytes() == (n - 1) * 32
+    assert tkd.tree_level_sizes(n) == [32, 16, 8, 4, 2, 1]
+    one = tree_levels(leaves[:1])
+    assert len(one) == 1 and one[0] is not None and one[0].shape == (1, 4)
+
+
 @pytest.mark.parametrize("factor, start", [(30, 5), (8, 1 << 40)])
 def test_grinding_batch_matches_jax(factor, start):
     """A batch with no hit (factor 30 over 4,096 nonces) and one whose first
@@ -189,6 +317,7 @@ def test_public_keccak_takes_the_plain_path_on_cpu_and_the_kernel_elsewhere():
     meta = torch.empty((16, 4, 2), dtype=torch.int32, device="meta")
     for call in (lambda: tkd.hash_felt_rows(meta, 2),
                  lambda: tkd.hash_digest_pairs(meta[0, :, :].long().reshape(2, 4)),
+                 lambda: tkd.hash_tree(meta[0, :, :].long().reshape(2, 4)),
                  lambda: tkd.grinding_batch(b"\x05" * 32, 0, 64, 3, "meta")):
         with pytest.raises(ValueError, match="CUDA tensors"):
             call()

@@ -8,8 +8,9 @@ elements are compared exactly (tolerance 0).  The kernels themselves
 (csrc/scan.cu) run only on the card, where ``chip_smoke.py`` ``[scan]``
 holds them against these plain versions bit for bit.  Here
 ``mirror_batch_inverse`` and ``mirror_prefix_product`` walk the kernels'
-index arithmetic (H5's chunk-major chains, its totals' blocks and product
-tree, H6's tiles, threads, warps and the totals' pass, the ragged edge)
+index arithmetic (H5's tiles, runs, warp scans and the backward walk, its
+totals' blocks, product tree and two-chain root inverse, H6's tiles,
+threads, warps and the totals' pass, the ragged edge)
 with the plain product, and must give the Python ints' answers; the
 launchers must refuse what they do not take, and CPU tensors must never
 reach them."""
@@ -70,13 +71,6 @@ def inverse_ints(x: torch.Tensor) -> list:
     return out
 
 
-def fermat(a: torch.Tensor) -> torch.Tensor:
-    """The inverse of each element of (16, m), by pow on Python ints (the
-    kernel's Fermat chain is the plain version's, tested on its own)."""
-    return tfd.from_ints([pow(v, P - 2, P) for v in tfd.to_ints(a)],
-                         device="cpu")
-
-
 def prefix_ints(x: torch.Tensor) -> list:
     out, acc = [], 1
     for v in tfd.to_ints(x):
@@ -95,26 +89,49 @@ def _ones(*shape) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def mirror_batch_inverse(x: torch.Tensor, k: int, q: int,
-                         mid: int = cs.MID_THREADS) -> torch.Tensor:
-    """csrc/scan.cu's H5 (inv_forward, inv_totals, inv_backward) with k
-    chunks, q totals a thread and ``mid`` threads a totals block; thread
-    j's values are column j."""
-    n = x.shape[1]
-    zero = (x == 0).all(dim=0)
-    out = torch.empty_like(x)
-    j = torch.arange(k)
-    cnt = (n - 1 - j) // k + 1  # elements of chunk j
-    acc = _ones(k)
-    for t in range(int(cnt.max())):  # inv_forward
-        live = j[cnt > t]
-        e = live + t * k
-        acc[:, live] = torch.where(zero[e], acc[:, live],
-                                   mul_plain(acc[:, live], x[:, e]))
-        out[:, e] = acc[:, live]
-    # inv_totals: block b, thread i takes the totals b mid q + i + t mid
-    # (t < q); the blocks side by side on axis 1
-    tot, pre = acc, torch.zeros_like(acc)
+def _warp_scan(a: torch.Tensor) -> torch.Tensor:
+    """Inclusive product scan over the last axis (32 lanes), by
+    __shfl_up_sync steps of 1, 2, 4, 8, 16."""
+    for off in (1, 2, 4, 8, 16):
+        nxt = a.clone()
+        nxt[..., off:] = mul_plain(a[..., :-off], a[..., off:])
+        a = nxt
+    return a
+
+
+def _scan_steps(a: torch.Tensor, width: int, reverse: bool) -> torch.Tensor:
+    """Inclusive product scan over the first ``width`` lanes of the last axis
+    (32 lanes) by shuffle steps 1, 2, 4, ... < width: __shfl_up_sync from
+    the lanes below, or with ``reverse`` __shfl_down_sync from the lanes
+    above; the lanes past ``width`` keep their values."""
+    off = 1
+    while off < width:
+        nxt = a.clone()
+        if reverse:
+            nxt[..., :width - off] = mul_plain(a[..., :width - off],
+                                               a[..., off:width])
+        else:
+            nxt[..., off:] = mul_plain(a[..., :-off], a[..., off:])
+        a = nxt
+        off *= 2
+    return a
+
+
+def _lane_after(a: torch.Tensor, width: int = 32) -> torch.Tensor:
+    """The lane after's value, one from lane width - 1 on."""
+    ex = _ones(*a.shape[1:])
+    ex[..., :width - 1] = a[..., 1:width]
+    return ex
+
+
+def mirror_inv_totals(tot: torch.Tensor, q: int, mid: int) -> torch.Tensor:
+    """csrc/scan.cu's inv_totals: the inverses of the k totals (16, k), by
+    blocks of ``mid`` threads, q totals a thread, a product tree a block and
+    the root's inverse by its two chains (cs.root_inverse)."""
+    k = tot.shape[1]
+    tot, pre = tot.clone(), torch.zeros_like(tot)
+    # block b, thread i takes the totals b mid q + i + t mid (t < q); the
+    # blocks side by side on axis 1
     blocks = -(-k // (mid * q))
     e0 = (torch.arange(blocks)[:, None] * mid * q + torch.arange(mid)).reshape(-1)
     cnt_i = torch.where(e0 < k, torch.clamp((k - 1 - e0) // mid + 1, max=q),
@@ -133,7 +150,7 @@ def mirror_batch_inverse(x: torch.Tensor, k: int, q: int,
         m = torch.arange(half, 2 * half)
         node[:, :, m] = mul_plain(node[:, :, 2 * m], node[:, :, 2 * m + 1])
         half //= 2
-    node[:, :, 1] = fermat(node[:, :, 1])
+    node[:, :, 1] = cs.root_inverse(node[:, :, 1], mul_plain)
     half = 1
     while half < mid:
         m = torch.arange(half, 2 * half)
@@ -151,29 +168,57 @@ def mirror_batch_inverse(x: torch.Tensor, k: int, q: int,
         r = mul_plain(acc[:, live], pre[:, e - mid])
         acc[:, live] = mul_plain(acc[:, live], tot[:, e])
         tot[:, e] = r
-    carry = tot  # inv_backward, from each chunk's last element down
-    for t in range(int(cnt.max()) - 1, -1, -1):
-        live = j[cnt > t]
-        e = live + t * k
-        z = zero[e]
-        if t > 0:
-            r = mul_plain(carry[:, live], out[:, e - k])
-            carry[:, live] = torch.where(z, carry[:, live],
-                                         mul_plain(carry[:, live], x[:, e]))
-        else:
-            r = carry[:, live]
-        out[:, e] = torch.where(z, torch.zeros_like(r), r)
-    return out
+    return tot
 
 
-def _warp_scan(a: torch.Tensor) -> torch.Tensor:
-    """Inclusive product scan over the last axis (32 lanes), by
-    __shfl_up_sync steps of 1, 2, 4, 8, 16."""
-    for off in (1, 2, 4, 8, 16):
-        nxt = a.clone()
-        nxt[..., off:] = mul_plain(a[..., :-off], a[..., off:])
-        a = nxt
-    return a
+def mirror_batch_inverse(x: torch.Tensor, threads: int = cs.INV_THREADS,
+                         q: int = 1, mid: int = cs.MID_THREADS,
+                         run: int = cs.RUN) -> torch.Tensor:
+    """csrc/scan.cu's H5 (inv_reduce, inv_totals, inv_apply) with tiles of
+    threads * run contiguous elements, thread t of a tile taking elements
+    t * run .. t * run + run - 1; q totals a thread and ``mid`` threads a
+    totals block.  Tiles are axis 1, threads axis 2, lanes of a warp the
+    last axis."""
+    n = x.shape[1]
+    tile, warps = threads * run, threads // 32
+    zero = (x == 0).all(dim=0)
+    xs = torch.where(zero, _ones(n), x)
+    v = _tiles(xs, tile).reshape(16, -1, threads, run)  # past n: one
+    k = v.shape[1]
+    # inv_reduce: a thread's run, the xor butterfly within warps, then
+    # thread 0 over the warps
+    acc = v[..., 0]
+    for r in range(1, run):
+        acc = mul_plain(acc, v[..., r])
+    acc = acc.reshape(16, k, warps, 32)
+    lane = torch.arange(32)
+    for off in (16, 8, 4, 2, 1):
+        acc = mul_plain(acc, acc[..., lane ^ off])
+    tot = acc[:, :, 0, 0]
+    for u in range(1, warps):
+        tot = mul_plain(tot, acc[:, :, u, 0])
+    tinv = mirror_inv_totals(tot, q, mid)
+    # inv_apply: the run's prefix products and total u
+    p = [v[..., 0]]
+    for r in range(1, run):
+        p.append(mul_plain(p[-1], v[..., r]))
+    u = p[-1].reshape(16, k, warps, 32)
+    pre, suf = _scan_steps(u, 32, False), _scan_steps(u, 32, True)
+    lanes_ex = mul_plain(_lane_before(pre), _lane_after(suf))
+    # warp 0: tinv times the warps before and after each warp
+    a = _ones(k, 32)
+    a[:, :, :warps] = pre[..., 31]
+    before = _lane_before(_scan_steps(a, warps, False))
+    after = _lane_after(_scan_steps(a, warps, True), warps)
+    wq = mul_plain(mul_plain(before, after), tinv[:, :, None])[:, :, :warps]
+    c = mul_plain(lanes_ex, wq[..., None]).reshape(16, k, threads)
+    out = [None] * run
+    for r in range(run - 1, 0, -1):
+        out[r] = mul_plain(c, p[r - 1])
+        c = mul_plain(c, v[..., r])
+    out[0] = c
+    res = torch.stack(out, dim=3).reshape(16, -1)[:, :n]
+    return torch.where(zero, torch.zeros_like(res), res)
 
 
 def _lane_before(a: torch.Tensor) -> torch.Tensor:
@@ -285,24 +330,54 @@ def test_plain_versions_match_python_ints(n):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("n, k, q", [
-    (1, 1, 1), (2, 2, 1), (3, 2, 1),
-    (1000, 37, 1),    # chains of 27 or 28 elements, one totals block
-    (1000, 300, 1),   # two totals blocks, the second ragged
-    (1500, 700, 2),   # q = 2: 512 totals a block, the second ragged
-    (4099, 4099, 1),  # the plan's own at this size: one element a chain
-    ((1 << 14) + 5, 1 << 10, 3)])
-def test_h5_schedule_matches_python_ints(n, k, q):
-    x = seeded(n + k, n, (0, k - 1, k, n - 1, n // 2))
-    assert tfd.to_ints(mirror_batch_inverse(x, k, q)) == inverse_ints(x)
+def h5_edges(n: int, threads: int) -> tuple:
+    """Zeros at the edges of H5's first runs and tiles and at the end."""
+    tile = threads * cs.RUN
+    return (0, cs.RUN - 1, cs.RUN, tile - 1, tile, 2 * tile - 1, n // 2,
+            n - 1)
+
+
+@pytest.mark.parametrize("n, threads, q", [
+    (1, cs.INV_THREADS, 1), (2, cs.INV_THREADS, 1), (3, cs.INV_THREADS, 1),
+    (1000, cs.INV_THREADS, 1),   # two tiles, the second ragged
+    (1024, cs.INV_THREADS, 1),   # two whole tiles, n % 4 == 0
+    (4099, 32, 1),               # tiles of 128 (one warp): 33 tiles
+    (4101, 64, 3),               # q = 3: 768 totals a totals block
+    ((1 << 14) + 5, cs.INV_THREADS, 3)])
+def test_h5_schedule_matches_python_ints(n, threads, q):
+    x = seeded(n + threads, n, h5_edges(n, threads))
+    assert tfd.to_ints(mirror_batch_inverse(x, threads, q)) == inverse_ints(x)
 
 
 def test_h5_schedule_with_small_totals_blocks():
-    """A totals block of 32 threads (5 tree levels) over 100 totals, 2 a
-    thread: two blocks, the second ragged."""
-    x = seeded(7, 700, (3, 99, 100))
-    assert tfd.to_ints(mirror_batch_inverse(x, 100, 2, mid=32)) == \
+    """A totals block of 32 threads (5 tree levels) over 100 tile totals, 2
+    a thread: two blocks, the second ragged."""
+    x = seeded(7, 12_800 - 3, h5_edges(12_800 - 3, 32))
+    assert tfd.to_ints(mirror_batch_inverse(x, 32, 2, mid=32)) == \
         inverse_ints(x)
+
+
+@pytest.mark.parametrize("n, zeros", [
+    (255, "edges"), (257, "edges"), (257, "all")])
+def test_h5_schedule_matches_jax(n, zeros):
+    """Tiles of 128 (ragged) with zeros at run and tile edges, and all
+    zeros, against the JAX package's batch_inverse."""
+    x = seeded(n + 11, n, range(n) if zeros == "all" else h5_edges(n, 32))
+    want = np.asarray(_jax_inverse(jnp.asarray(limbs_to_numpy(x))))
+    assert np.array_equal(limbs_to_numpy(mirror_batch_inverse(x, 32)), want)
+
+
+def test_root_inverse_is_fermat():
+    """H5's root chain (inv_low, inv_high) is a^(p - 2): on Python ints
+    and on limbs with the plain product, against pow and ``fermat``."""
+    rng = np.random.default_rng(12)
+    vals = [1, 2, 3, P - 1, R % P, *(int(v) % P for v in
+                                     rng.integers(1, 1 << 62, 4))]
+    mul = lambda a, b: a * b % P  # noqa: E731
+    assert [cs.root_inverse(v, mul) for v in vals] == \
+        [pow(v, P - 2, P) for v in vals]
+    x = seeded(13, 6)
+    assert torch.equal(cs.root_inverse(x, mul_plain), cs.fermat(x, mul_plain))
 
 
 @pytest.mark.parametrize("n, threads, per", [
@@ -322,10 +397,11 @@ def test_h6_schedule_matches_python_ints(n, threads, per):
                                3 << 19, 1 << 21, 3 << 21, 1 << 23, 3 << 23])
 def test_plans_cover_every_element(n):
     """At the proves' shapes too (the RAP's 2^21 and 3 * 2^19, DEEP's
-    3 * 2^21, fib(280000)'s 2^23 and 3 * 2^23): every chain has an
-    element, every totals block a total, and the blocks cover the totals."""
+    3 * 2^21, fib(280000)'s 2^23 and 3 * 2^23): the tiles cover the
+    elements, every totals block has a total, and the blocks cover the
+    totals."""
     k, q, blocks = cs.inverse_plan(n)
-    assert 1 <= k <= min(n, cs.MAX_CHUNKS) and q >= 1
+    assert (k - 1) * cs.INV_TILE < n <= k * cs.INV_TILE and q >= 1
     assert (blocks - 1) * cs.MID_THREADS * q < k <= blocks * cs.MID_THREADS * q
     assert blocks <= cs.MID_BLOCKS
     nb = cs.prefix_tiles(n)
@@ -347,16 +423,20 @@ def test_kernel_constants_match_the_source():
     csrc/scan.cu bakes."""
     src = _source()
     consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
+    assert int(consts["kInvThreads"]) == cs.INV_THREADS
+    assert int(consts["kRun"]) == cs.RUN
     assert int(consts["kMidThreads"]) == cs.MID_THREADS
     assert int(consts["kTileThreads"]) == cs.TILE_THREADS
     assert int(consts["kPerThread"]) == cs.PER_THREAD
     body = src[src.index("void set_one("):]
     words = re.findall(r"w\[(\d)\] = (0x[0-9A-Fa-f]+)u;", body)[:8]
     assert sum(int(v, 16) << (32 * int(i)) for i, v in words) == R
-    # p - 2 = 2^251 + 2^196 + (2^192 - 1): a leading bit at 251, then
-    # bit 196 and the bits below 192
-    assert "bit = 250" in src and "bit < 192 || bit == 196" in src
-    assert P - 2 == (1 << 251) + (1 << 196) + (1 << 192) - 1
+    # the root's two chains: p - 2 = 2^192 (2^59 + 2^4) + (2^192 - 1)
+    low, shift, tail = (int(consts[c]) for c in ("kLowBits", "kHighShift",
+                                                   "kHighTail"))
+    assert (low, shift, tail) == (cs.LOW_BITS, cs.HIGH_SHIFT, cs.HIGH_TAIL)
+    assert P - 2 == (1 << low) * ((1 << (shift + tail)) + (1 << tail)) + \
+        (1 << low) - 1
 
 
 def test_new_signatures_match_scan_cu():

@@ -5,7 +5,7 @@ Run from the root of the repository on a machine with a CUDA GPU:
 
     python3 tools/profile_torch_prove.py [--workload simple_fibonacci|cairo_fib|cairo_hints]
         [--log-rows 19] [--fib-n 70000] [--repeats 3]
-        [--fri-route chain|per-layer|both] [--out DIR]
+        [--fri-route chain|per-layer|both] [--out DIR] [--root DIR]
 
 ``--workload simple_fibonacci`` (the default) proves the one-column example
 AIR at 2^``--log-rows`` rows; ``--workload cairo_fib`` runs the Cairo program
@@ -26,6 +26,10 @@ and idle share over the profiled prove, and the device time by
 group and by kernel.  With ``--out``, also writes the profiler's table
 there (a Chrome trace of a whole prove is too large to keep).  Uses the bench options: blowup 4, 80 FRI queries, coset offset
 3, grinding 20.
+
+``--root DIR`` proves with the package of another checkout (the parent
+commit unpacked with ``git archive``, say), so that two versions are
+profiled by the same tool and grouped alike.
 
 ``--mesh`` proves on several cards at once, the LDE domain sharded
 (``prove(mesh=..., shard_axis="domain")``), one process per card, started by
@@ -68,14 +72,18 @@ NTT_LOG = 20  # --mesh: the four-step NTT's size, bench.py's BENCH_NTT_LOG2
 
 # kernel-name fragment -> group; the first match wins, the rest is "other"
 GROUPS = (
-    # K1 keccak_rows_kernel, K2 keccak_pairs_kernel, K3 keccak_grind_kernel
-    ("keccak_", "K1-K3 Keccak"),
+    ("keccak_rows_kernel", "K1 keccak_rows"),
+    ("keccak_pairs_kernel", "K2 keccak_pairs"),
+    ("keccak_grind_kernel", "K3 keccak_grind"),
     ("mont_mul_kernel", "H1 mont_mul"),
     ("add_sub_kernel", "H2 add_sub_mod"),
     ("ntt_dif_stages_kernel", "H3 ntt_dif_stages"),
     ("ntt_dif_local_kernel", "H4 ntt_dif_local"),
-    ("inv_forward_kernel", "H5 mont_batch_inverse"),
+    ("inv_reduce_kernel", "H5 mont_batch_inverse"),
     ("inv_totals_kernel", "H5 mont_batch_inverse"),
+    ("inv_apply_kernel", "H5 mont_batch_inverse"),
+    # H5's passes before its redesign (a checkout from before, --root)
+    ("inv_forward_kernel", "H5 mont_batch_inverse"),
     ("inv_backward_kernel", "H5 mont_batch_inverse"),
     ("prefix_reduce_kernel", "H6 mont_prefix_product"),
     ("prefix_totals_kernel", "H6 mont_prefix_product"),
@@ -108,6 +116,10 @@ def main() -> int:
     ap.add_argument("--fri-route", choices=("chain", "per-layer", "both"),
                     default="chain")
     ap.add_argument("--out", help="directory for the profiler's table")
+    ap.add_argument("--root", default=ROOT,
+                    help="the checkout whose package proves (another one, "
+                    "such as the parent unpacked with git archive, to "
+                    "compare two versions in one call)")
     ap.add_argument("--mesh", action="store_true",
                     help="prove over all ranks of a torchrun group, the "
                     "LDE domain sharded")
@@ -120,7 +132,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("FAILED: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
-    sys.path.insert(0, ROOT)
+    sys.path.insert(0, os.path.abspath(args.root))
     from lambdaworks_cairo_prover_tpu_torch.air.examples.simple_fibonacci import (
         FibonacciAIR, FibonacciPublicInputs, fibonacci_trace)
     from lambdaworks_cairo_prover_tpu_torch.cairo.air import CairoAIR
@@ -273,8 +285,9 @@ def main() -> int:
         with open(os.path.join(args.out, "key_averages.txt"), "w") as f:
             f.write(prof.key_averages().table(
                 sort_by="self_device_time_total", row_limit=60))
-    say(json.dumps({"card": card, "workload": args.workload,
-                      "rows": trace.n_rows, "main_columns": trace.n_cols,
+    say(json.dumps({"card": card, "root": os.path.abspath(args.root),
+                      "workload": args.workload, "rows": trace.n_rows,
+                      "main_columns": trace.n_cols,
                       "mesh": "domain" if mesh is not None else None,
                       "ranks": mesh.size() if mesh is not None else 1,
                       "proof_sha256": digest, "cold_prove_s": cold,
@@ -284,7 +297,9 @@ def main() -> int:
                       "round4_fri_commit_s": {
                           r: [f for _, f in runs] for r, runs in by_route.items()},
                       "device_busy_ms": busy_ms,
-                      "device_ms_by_group": {g: v[0] for g, v in groups.items()}}),
+                      "device_ms_by_group": {g: v[0] for g, v in groups.items()},
+                      "kernel_launches_by_group": {
+                          g: v[1] for g, v in groups.items()}}),
           flush=True)
     return 0
 
