@@ -28,9 +28,11 @@ Phases (any failure exits non-zero):
      their bound;
      then the scans (``[scan]``), bit for bit: H5 mont_batch_inverse and H6
      mont_prefix_product at the proves' shapes (2^21, 3 * 2^19 and 3 * 2^21
-     elements, H5 also at 3 * 2^23, 1 and 2^16) with zeros planted, at
-     small and ragged sizes and on all zeros, and against Python ints on a
-     sample; timed beside the chunked loop over H1 that they replaced;
+     elements, H5 also at 3 * 2^23, H6 at 2^23, both at 1 and 2^16) with
+     zeros planted, at small and ragged sizes and on all zeros, H6 with
+     its first tiles zero and in 100 calls back to back, and against Python
+     ints on a sample; timed beside the chunked loop over H1 that they
+     replaced;
   4. simple_fibonacci proofs against the JAX package's fixtures: 2^10 rows
      with test options (equal bytes) and, where the fixture has a digest,
      its size with the bench options (equal sha256);
@@ -927,14 +929,17 @@ SCAN_SHAPES = (4 << FULL_LOG, 3 << FULL_LOG, 3 << LDE_LOG)
 SCAN_SMALL = (0, 1, 2, 3, 255, 256, 257, 1023, 1024, 1025, 4097, 65535,
               65536, 65537, 70001)
 # H5 also at fib(280000)'s DEEP inverse, and at 1 and 2^16 elements, where
-# its fixed part (the launches and the root's inverse) dominates
+# its fixed part (the launches and the root's inverse) dominates; H6 at
+# fib(280000)'s memory scan (4 values a row of 2^21), 1 and 2^16
 INVERSE_EXTRA = (3 << (MEMORY_LOG + 2), 1, 1 << 16)
+PREFIX_EXTRA = (1 << (MEMORY_LOG + 2), 1, 1 << 16)
+# H6 called back to back at these shapes without a synchronise, each output
+# equal to the first (the status words of one call are the next's)
+PREFIX_REPEAT, PREFIX_REPEAT_SHAPES = 100, (3 << FULL_LOG, 4 << FULL_LOG)
 SCAN_KERNELS = {"mont_batch_inverse": ("inv_reduce_kernel",
                                       "inv_totals_kernel",
                                       "inv_apply_kernel"),
-                "mont_prefix_product": ("prefix_reduce_kernel",
-                                        "prefix_totals_kernel",
-                                        "prefix_scan_kernel")}
+                "mont_prefix_product": ("prefix_product_kernel",)}
 
 
 def root_products() -> int:
@@ -951,11 +956,14 @@ def root_products() -> int:
     return count[0]
 
 
-def scan_input(torch, n: int, dev, plant: bool, all_zero: bool = False):
-    """(16, n) seeded canonical elements on the card, 0, 1 and p - 1 last;
-    where ``plant``, zeros also at the edges of H5's first runs and tiles,
-    in the middle and a tile before the end (and about H6's first tile's
-    end)."""
+def scan_input(torch, n: int, dev, plant: str = "", all_zero: bool = False,
+               zero_tiles: int = 0):
+    """(16, n) seeded canonical elements on the card, 0, 1 and p - 1 last.
+    ``plant`` "mont_batch_inverse": zeros also at the edges of H5's first
+    runs and tiles, in the middle and a tile before the end (and about H6's
+    first tile's end); "mont_prefix_product": zeros on the edges of H6's
+    last two tiles and inside them (the products before stay nonzero);
+    ``zero_tiles``: H6's first tiles all zero."""
     from lambdaworks_cairo_prover_tpu_torch.field import cuda_scan as cs
 
     if n < 3:
@@ -964,20 +972,30 @@ def scan_input(torch, n: int, dev, plant: bool, all_zero: bool = False):
         x = random_columns(torch, 1, n, dev).reshape(16, n)
     if all_zero:
         return torch.zeros_like(x).contiguous()
-    if n and plant:
-        for e in (0, cs.RUN - 1, cs.RUN, cs.INV_TILE - 1, cs.INV_TILE,
-                  n // 2, n - cs.INV_TILE, cs.TILE - 1, cs.TILE):
-            if 0 <= e < n - 1:
-                x[:, e] = 0
+    x[:, :zero_tiles * cs.TILE] = 0
+    if n and plant == "mont_batch_inverse":
+        edges = (0, cs.RUN - 1, cs.RUN, cs.INV_TILE - 1, cs.INV_TILE,
+                 n // 2, n - cs.INV_TILE, cs.TILE - 1, cs.TILE)
+    elif n and plant == "mont_prefix_product":
+        last = (cs.prefix_plan(n)[0] - 1) * cs.TILE  # the last tile's start
+        edges = (last - cs.TILE - 1, last - cs.TILE + cs.RUN, last - 1, last,
+                 last + 1, n - 3)
+    else:
+        edges = ()
+    for e in edges:
+        if 0 <= e < n - 1:
+            x[:, e] = 0
     return x.contiguous()
 
 
 def phase_scan(torch, dev) -> dict:
     """H5 mont_batch_inverse and H6 mont_prefix_product against their plain
     versions on the card, bit for bit: at the path's shapes (SCAN_SHAPES,
-    and H5 at fib(280000)'s DEEP inverse, 3 * 2^23, and at 1 and 2^16
-    elements for its fixed part) with zeros planted, at
-    small and ragged sizes, on all zeros; against Python ints on a sample.
+    and at fib(280000)'s DEEP inverse, 3 * 2^23, and memory scan, 2^23, and
+    at 1 and 2^16 elements for the fixed part) with zeros planted, at
+    small and ragged sizes, on all zeros, H6 also with its first tiles all
+    zero and in PREFIX_REPEAT calls back to back; against Python ints on a
+    sample.
     Their times against the bound, the plain version and the route they
     replaced (the chunked loop over H1, whose launches are counted), and
     H1's time a step of that loop.  Returns the kernels' records."""
@@ -1014,27 +1032,48 @@ def phase_scan(torch, dev) -> dict:
                 f"{tag}")
         return got, plain_ms
 
-    # small and ragged sizes, and all zeros
-    def planted(name):
-        return name == "mont_batch_inverse"
-
+    # small and ragged sizes, all zeros, and H6's first tiles all zero
     for n in SCAN_SMALL:
         for name in kernels:
-            compare(name, scan_input(torch, n, dev, planted(name)),
-                    f"n = {n}")
+            # H6's planted zeros would zero most of a small input
+            plant = name if name == "mont_batch_inverse" else ""
+            compare(name, scan_input(torch, n, dev, plant), f"n = {n}")
     for name in kernels:
-        compare(name, scan_input(torch, 4097, dev, False, all_zero=True),
-                "zeros")
+        compare(name, scan_input(torch, 4097, dev, all_zero=True), "zeros")
+    got, _ = compare("mont_prefix_product",
+                     scan_input(torch, SCAN_SHAPES[0], dev, zero_tiles=3),
+                     "the first 3 tiles zero")
+    require(not got.any(), "H6: a zero prefix is not zero")
     log(f"[scan] mont_batch_inverse, mont_prefix_product vs plain at n = "
-        f"{', '.join(map(str, SCAN_SMALL))} and 4097 zeros: max_abs_err "
+        f"{', '.join(map(str, SCAN_SMALL))} and 4097 zeros, H6 at "
+        f"{SCAN_SHAPES[0]} with its first 3 tiles zero: max_abs_err "
         f"{errs['mont_batch_inverse']}, {errs['mont_prefix_product']}")
+    del got
+
+    # H6 back to back: the caching allocator hands each call the status
+    # words of the one before; the mismatches are summed on the card
+    repeat = {}
+    for n in PREFIX_REPEAT_SHAPES:
+        x = scan_input(torch, n, dev, "mont_prefix_product")
+        first = cs.mont_prefix_product(x)
+        bad = torch.zeros((), dtype=torch.int64, device=dev)
+        for _ in range(PREFIX_REPEAT - 1):
+            bad += (cs.mont_prefix_product(x) != first).any(dim=0).sum()
+        repeat[n] = int(bad)
+        require(repeat[n] == 0, f"H6: {repeat[n]} elements of {PREFIX_REPEAT} "
+                f"calls at (16, {n}) differ from the first call's")
+        del x, first
+    log(f"[scan] mont_prefix_product {PREFIX_REPEAT} calls back to back at "
+        f"n = {', '.join(map(str, PREFIX_REPEAT_SHAPES))}: every output "
+        f"equal to the first")
 
     records = {name: [] for name in kernels}
     shapes = [(name, n) for n in SCAN_SHAPES for name in kernels]
     shapes += [("mont_batch_inverse", n) for n in INVERSE_EXTRA]
+    shapes += [("mont_prefix_product", n) for n in PREFIX_EXTRA]
     root_ops = root_products()
     for name, n in shapes:
-        x = scan_input(torch, n, dev, planted(name))
+        x = scan_input(torch, n, dev, name)
         kernel, plain = kernels[name]
         got, plain_ms = compare(name, x, f"(16, {n})")
         # Python ints on a sample: the first and last elements and around
@@ -1059,7 +1098,8 @@ def phase_scan(torch, dev) -> dict:
                     "totals_blocks": mid_blocks}
         else:
             ops = OPS_MUL * (n - 1)
-            plan = {"tiles": cs.prefix_tiles(n)}
+            tiles, words = cs.prefix_plan(n)
+            plan = {"tiles": tiles, "status_words": words}
         cf.mont_mul.launches = 0
         h1_out, h1_loop_ms = timed(torch, lambda: plain(x, cf.mont_mul))
         h1_launches = cf.mont_mul.launches
@@ -1093,6 +1133,9 @@ def phase_scan(torch, dev) -> dict:
         main = next(r for r in recs if r["n"] == main_n)
         out[name] = {**main, "by_shape": recs,
                      "max_abs_err": errs[name],
+                     **({"back_to_back": {"calls": PREFIX_REPEAT,
+                                          "mismatches": repeat}}
+                        if name == "mont_prefix_product" else {}),
                      # no PyTorch call computes a 256-bit modular scan
                      "library_ms": None, "build": build[name]}
     return out

@@ -40,16 +40,31 @@
 // persistent blocks that staged the next tile by cp.async.  Zeros map to
 // zero, as in lambdaworks' inplace_batch_inverse.
 //
-// H6, three launches (one when n <= kTile).  A prefix product needs
-// contiguous ranges: a block takes a tile of kTile elements.  (1)
-// prefix_reduce: each tile's total, read coalesced; (2) prefix_totals: one
-// block scans the tile totals in place, a tile of them at a time with the
-// running product carried between them; (3) prefix_scan: each block loads
-// its tile coalesced into shared memory, each thread scans its kPerThread
-// consecutive elements there, a warp scan (shuffles) and a scan of the warp
-// totals give each thread its offset, times the inclusive total of the tiles
-// before; the tile goes back out coalesced.  Bytes: the input read twice and
-// the output written once.
+// H6, one launch (and a memset of its status words), a single pass with
+// decoupled look-back: x is read once and out written once, 128 B an
+// element, plus 4 B of flag and 64 B of payload a tile.  A block takes a
+// tile of kTile contiguous elements, its index from an atomic counter (so a
+// block only ever waits on tiles that running blocks hold); thread t a run
+// of kPerThread consecutive elements, read as H5's runs are.  (1) The run's
+// inclusive products (3), which wait in shared memory, not in registers,
+// so that kTileBlocks blocks fit an SM; a warp scan of the runs' totals by
+// shuffles (5); warp 0 scans the warps' totals (2): the tile's aggregate,
+// which it publishes at once.  (2) Warp 0 looks back over the tiles
+// before, 32 at a time (lane i at tile b - i): when none of them is still
+// unpublished, the lanes up to the nearest inclusive prefix (or all 32,
+// and the walk goes on 32 further back) multiply their payloads into
+// their own products; at the inclusive prefix the lanes' products are
+// multiplied together, and the tile publishes its inclusive prefix.  (3)
+// Each thread's offset is (the tile's exclusive prefix times its warp's)
+// times its lane's (1), times each inclusive product of its run (4): 3.25
+// products an element, against 5.5 for the three passes it replaced.
+// Readiness is the flag alone (a zero tile has a zero aggregate): a
+// payload is written (L2, st.cg), then __threadfence, then its flag by
+// st.release.gpu; a reader takes the flag by ld.acquire.gpu and the
+// payload through L2 (ld.cg).  The launcher zeroes the counter and the
+// flags on the caller's stream before every launch.  A single tile
+// launches alone, with no status words.  The variants measured against
+// this design, and what holds it under its bound: PERF.md section 6.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -67,13 +82,17 @@ constexpr int kMidThreads = 256;   // H5's totals: leaves of a block's tree
 constexpr int kLowBits = 192;
 constexpr int kHighShift = 55;
 constexpr int kHighTail = 4;
-constexpr int kTileThreads = 256;  // H6: threads a tile
+constexpr int kTileThreads = 128;  // H6: threads a tile
 constexpr int kPerThread = 4;      // H6: consecutive elements a thread scans
 constexpr int kTile = kTileThreads * kPerThread;
 constexpr int kWarps = kTileThreads / 32;
-// a tile in shared memory, word-major, one pad word after every kPerThread
-// elements, so that the threads' strided reads of step (3) hit 32 banks
-constexpr int kPitch = kTile + kTile / kPerThread;
+constexpr int kTileBlocks = 6;     // H6: blocks an SM (registers <= 85)
+// H6's status words: the tile counter, padded to 32 B; one flag a tile,
+// padded to 32 B; then a slot of 16 words a tile, its aggregate and its
+// inclusive prefix
+constexpr int kStatusHead = 8;
+constexpr int kSlotWords = 16;
+constexpr unsigned kNone = 0, kAggregate = 1, kInclusive = 2;  // a tile's flag
 constexpr unsigned kFull = 0xFFFFFFFFu;
 
 // R mod p, the Montgomery form of one
@@ -100,11 +119,12 @@ __device__ __forceinline__ void copy8(uint32_t d[8], const uint32_t s[8]) {
   for (int k = 0; k < 8; ++k) d[k] = s[k];
 }
 
-// Inclusive product scan over the lanes of a warp.
+// Inclusive product scan over lanes 0 .. kWidth - 1 of a warp.
+template <int kWidth>
 __device__ __forceinline__ void warp_scan(uint32_t acc[8]) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
-  for (int off = 1; off < 32; off *= 2) {
+  for (int off = 1; off < kWidth; off *= 2) {
     uint32_t y[8];
 #pragma unroll
     for (int w = 0; w < 8; ++w) y[w] = __shfl_up_sync(kFull, acc[w], off);
@@ -463,67 +483,140 @@ __global__ void __launch_bounds__(kInvThreads)
 // H6
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ int slot(int e) { return e + e / kPerThread; }
-
-__device__ __forceinline__ void tile_get(uint32_t (*tile)[kPitch], int e, uint32_t w[8]) {
-#pragma unroll
-  for (int k = 0; k < 8; ++k) w[k] = tile[k][slot(e)];
+// H6's status words: where tile t's flag and slot lie
+__host__ __device__ __forceinline__ long long flag_words(long long nb) {
+  return kStatusHead + (nb + 7) / 8 * 8;
 }
 
-__device__ __forceinline__ void tile_put(uint32_t (*tile)[kPitch], int e,
-                                         const uint32_t w[8]) {
-#pragma unroll
-  for (int k = 0; k < 8; ++k) tile[k][slot(e)] = w[k];
+__device__ __forceinline__ unsigned ld_acquire(const int32_t* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
 }
 
-// dst[base + e] = carry * src[base] * ... * src[base + e] for the elements
-// e < kTile of the tile with base + e < n (the rest taken as one);
-// `total` gets carry times the tile's product.  src may be dst.
-__device__ void scan_tile(const int32_t* src, int32_t* dst, long long n, long long base,
-                          const uint32_t carry[8], uint32_t (*tile)[kPitch],
-                          uint32_t (*wsum)[kWarps], uint32_t* total) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  uint32_t acc[8], v[8], ex[8];
-#pragma unroll
-  for (int it = 0; it < kPerThread; ++it) {  // coalesced in
-    const int e = it * kTileThreads + tid;
-    if (base + e < n) {
-      lcp::load_elem(src, n, base + e, v);
-    } else {
-      set_one(v);
+// Tile t's aggregate or inclusive prefix, then its flag; by one thread.
+__device__ __forceinline__ void publish(int32_t* status, long long nb, long long t,
+                                        unsigned kind, const uint32_t v[8]) {
+  uint4* slot = reinterpret_cast<uint4*>(status + flag_words(nb) + kSlotWords * t +
+                                         (kind == kInclusive ? 8 : 0));
+  __stcg(slot, make_uint4(v[0], v[1], v[2], v[3]));
+  __stcg(slot + 1, make_uint4(v[4], v[5], v[6], v[7]));
+  __threadfence();
+  asm volatile("st.release.gpu.u32 [%0], %1;"
+               :
+               : "l"(status + kStatusHead + t), "r"(kind)
+               : "memory");
+}
+
+// pre = the product of tiles 0 .. t - 1 (t >= 1), on every lane of the
+// calling warp: lane i looks at tile b - i of the windows b = t - 1, t - 33,
+// ...  Once no tile of the window is unpublished, the lanes up to the
+// nearest inclusive prefix (all 32 where there is none) multiply their
+// payloads into their own running products, and the walk stops at an
+// inclusive prefix; then the lanes' products are multiplied by xor
+// shuffles (one dependent product a window, not five).  Tile 0 publishes
+// its inclusive prefix before any look-back, so lanes past it never count.
+__device__ __forceinline__ void look_back(const int32_t* status, long long nb, long long t,
+                                          uint32_t pre[8]) {
+  const int lane = threadIdx.x & 31;
+  const int32_t* flags = status + kStatusHead;
+  const int32_t* slots = status + flag_words(nb);
+  set_one(pre);
+  int top = 0;  // the highest lane with a payload
+  for (long long b = t - 1;; b -= 32) {
+    const long long j = b - lane;
+    unsigned f;
+    do {
+      f = j >= 0 ? ld_acquire(flags + j) : kInclusive;
+    } while (__any_sync(kFull, f == kNone));
+    const unsigned incl = __ballot_sync(kFull, f == kInclusive);
+    const int last = incl ? __ffs(incl) - 1 : 31;  // lanes 0 .. last count
+    if (lane <= last && j >= 0) {
+      const uint4* p = reinterpret_cast<const uint4*>(slots + kSlotWords * j +
+                                                      (f == kInclusive ? 8 : 0));
+      const uint4 lo = __ldcg(p), hi = __ldcg(p + 1);
+      const uint32_t v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+      lcp::mont_mul(pre, v, pre);
     }
-    tile_put(tile, e, v);
+    top = last > top ? last : top;
+    if (incl) break;
   }
-  __syncthreads();
-  const int e0 = tid * kPerThread;  // the thread's consecutive elements
-  tile_get(tile, e0, acc);
+  for (int off = 1; off <= top; off *= 2) {  // lanes 0 .. 2 off - 1 on each
+    uint32_t y[8];
 #pragma unroll
-  for (int t = 1; t < kPerThread; ++t) {
-    tile_get(tile, e0 + t, v);
-    lcp::mont_mul(acc, v, acc);
-    tile_put(tile, e0 + t, acc);
+    for (int w = 0; w < 8; ++w) y[w] = __shfl_xor_sync(kFull, pre[w], off);
+    lcp::mont_mul(pre, y, pre);
   }
-  warp_scan(acc);
-  lane_before(acc, ex);
+#pragma unroll
+  for (int w = 0; w < 8; ++w) pre[w] = __shfl_sync(kFull, pre[w], 0);
+}
+
+// out = the inclusive prefix products of x, a tile of kTile elements a
+// block.  status (null: a single tile, n <= kTile): the tile counter, the
+// flags (zeroed before the launch) and the slots.
+template <bool kVec>
+__global__ void __launch_bounds__(kTileThreads, kTileBlocks)
+    prefix_product_kernel(const int32_t* __restrict__ x, int32_t* __restrict__ out,
+                          long long n, int32_t* status, long long nb) {
+  static_assert(kPerThread % kRun == 0, "a run is read kRun elements at a time");
+  __shared__ uint32_t wsum[8][kWarps];
+  // the runs' inclusive products, word-major and thread-minor (no bank
+  // conflicts): they wait here, not in registers, through the look-back
+  __shared__ uint32_t runs[kPerThread][8][kTileThreads];
+  __shared__ unsigned tile;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  long long t = 0;
+  if (status != nullptr) {
+    if (tid == 0) tile = atomicAdd(reinterpret_cast<unsigned*>(status), 1u);
+    __syncthreads();
+    t = tile;
+  }
+  const long long e0 = t * kTile + tid * kPerThread;
+  uint32_t ex[8];
+#pragma unroll
+  for (int q = 0; q < kPerThread; q += kRun) {
+    uint32_t v[kRun][8];
+    load_run<kVec>(x, n, e0 + q, v);
+#pragma unroll
+    for (int r = 0; r < kRun; ++r) {
+      if (q + r == 0) {
+        copy8(ex, v[0]);
+      } else {
+        lcp::mont_mul(ex, v[r], ex);
+      }
+#pragma unroll
+      for (int w = 0; w < 8; ++w) runs[q + r][w][tid] = ex[w];
+    }
+  }
+  warp_scan<32>(ex);
   if (lane == 31) {
 #pragma unroll
-    for (int w = 0; w < 8; ++w) wsum[w][warp] = acc[w];
+    for (int w = 0; w < 8; ++w) wsum[w][warp] = ex[w];
   }
+  lane_before(ex, ex);
   __syncthreads();
-  if (warp == 0) {  // the warps' offsets, times the carry
-    uint32_t s[8], o[8];
+  if (warp == 0) {  // the warps' offsets, times the tiles' before
+    uint32_t s[8], o[8], pre[8];
     if (lane < kWarps) {
 #pragma unroll
       for (int w = 0; w < 8; ++w) s[w] = wsum[w][lane];
     } else {
       set_one(s);
     }
-    warp_scan(s);
+    warp_scan<kWarps>(s);  // lane kWarps - 1: the tile's aggregate
     lane_before(s, o);
-    lcp::mont_mul(carry, o, o);
-    if (lane == kWarps - 1) {
-      lcp::mont_mul(carry, s, v);
-      copy8(total, v);
+    if (status != nullptr) {
+      if (t == 0) {
+        if (lane == kWarps - 1) publish(status, nb, 0, kInclusive, s);
+      } else {
+        if (lane == kWarps - 1) publish(status, nb, t, kAggregate, s);
+        look_back(status, nb, t, pre);
+        if (lane == kWarps - 1) {
+          lcp::mont_mul(pre, s, s);
+          publish(status, nb, t, kInclusive, s);
+        }
+        lcp::mont_mul(pre, o, o);
+      }
     }
     __syncwarp();
     if (lane < kWarps) {
@@ -537,91 +630,16 @@ __device__ void scan_tile(const int32_t* src, int32_t* dst, long long n, long lo
   for (int w = 0; w < 8; ++w) off[w] = wsum[w][warp];
   lcp::mont_mul(off, ex, off);
 #pragma unroll
-  for (int t = 0; t < kPerThread; ++t) {
-    tile_get(tile, e0 + t, v);
-    lcp::mont_mul(off, v, v);
-    tile_put(tile, e0 + t, v);
-  }
-  __syncthreads();
+  for (int q = 0; q < kPerThread; q += kRun) {
+    uint32_t v[kRun][8];
 #pragma unroll
-  for (int it = 0; it < kPerThread; ++it) {  // coalesced out
-    const int e = it * kTileThreads + tid;
-    if (base + e < n) {
-      tile_get(tile, e, v);
-      lcp::store_elem(dst, n, base + e, v);
+    for (int r = 0; r < kRun; ++r) {
+#pragma unroll
+      for (int w = 0; w < 8; ++w) v[r][w] = runs[q + r][w][tid];
+      lcp::mont_mul(off, v[r], v[r]);
     }
+    store_run<kVec>(out, n, e0 + q, v);
   }
-  __syncthreads();  // the tile and wsum are free again
-}
-
-// tot[b] = the product of tile b's elements.
-__global__ void __launch_bounds__(kTileThreads)
-    prefix_reduce_kernel(const int32_t* __restrict__ x, long long n,
-                         int32_t* __restrict__ tot, long long nb) {
-  __shared__ uint32_t wsum[8][kWarps];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const long long base = (long long)blockIdx.x * kTile;
-  uint32_t acc[8], v[8];
-  set_one(acc);
-#pragma unroll
-  for (int it = 0; it < kPerThread; ++it) {
-    const long long e = base + it * kTileThreads + tid;
-    if (e < n) {
-      lcp::load_elem(x, n, e, v);
-      lcp::mont_mul(acc, v, acc);
-    }
-  }
-#pragma unroll
-  for (int off = 16; off >= 1; off /= 2) {
-#pragma unroll
-    for (int w = 0; w < 8; ++w) v[w] = __shfl_xor_sync(kFull, acc[w], off);
-    lcp::mont_mul(acc, v, acc);
-  }
-  if (lane == 0) {
-#pragma unroll
-    for (int w = 0; w < 8; ++w) wsum[w][warp] = acc[w];
-  }
-  __syncthreads();
-  if (tid == 0) {
-    for (int u = 1; u < kWarps; ++u) {
-#pragma unroll
-      for (int w = 0; w < 8; ++w) v[w] = wsum[w][u];
-      lcp::mont_mul(acc, v, acc);
-    }
-    lcp::store_elem(tot, nb, blockIdx.x, acc);
-  }
-}
-
-// tot <- its inclusive prefix products, by one block, a tile at a time.
-__global__ void __launch_bounds__(kTileThreads)
-    prefix_totals_kernel(int32_t* tot, long long nb) {
-  __shared__ uint32_t tile[8][kPitch];
-  __shared__ uint32_t wsum[8][kWarps];
-  __shared__ uint32_t total[8];
-  uint32_t carry[8];
-  set_one(carry);
-  for (long long base = 0; base < nb; base += kTile) {
-    scan_tile(tot, tot, nb, base, carry, tile, wsum, total);
-    copy8(carry, total);
-    __syncthreads();  // every thread has read `total` before the next tile
-  }
-}
-
-// out = the inclusive prefix products of x; tile b starts from tinc[b - 1],
-// the product of the tiles before (tinc null: a single tile).
-__global__ void __launch_bounds__(kTileThreads)
-    prefix_scan_kernel(const int32_t* __restrict__ x, int32_t* __restrict__ out,
-                       long long n, const int32_t* __restrict__ tinc, long long nb) {
-  __shared__ uint32_t tile[8][kPitch];
-  __shared__ uint32_t wsum[8][kWarps];
-  __shared__ uint32_t total[8];
-  uint32_t carry[8];
-  if (blockIdx.x == 0 || tinc == nullptr) {
-    set_one(carry);
-  } else {
-    lcp::load_elem(tinc, nb, blockIdx.x - 1, carry);
-  }
-  scan_tile(x, out, n, (long long)blockIdx.x * kTile, carry, tile, wsum, total);
 }
 
 unsigned int blocks(long long n, long long per_block) {
@@ -663,27 +681,30 @@ int lcp_batch_inverse(const void* x, void* out, long long n, long long k, long l
   return (int)cudaGetLastError();
 }
 
-// x, out: (16, n) limbs; tot: (16, ceil(n / kTile)) scratch, unused (may be
+// x, out: (16, n) limbs; nb = ceil(n / kTile) tiles; status:
+// flag_words(nb) + kSlotWords * nb int32 words of scratch, unused (may be
 // null) for a single tile.
-int lcp_prefix_product(const void* x, void* out, long long n, void* tot, void* stream) {
+int lcp_prefix_product(const void* x, void* out, long long n, long long nb, void* status,
+                       void* stream) {
   if (n <= 0) return 0;
+  if (nb != (n + kTile - 1) / kTile) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const long long nb = (n + kTile - 1) / kTile;
-  if (nb == 1) {
-    prefix_scan_kernel<<<1, kTileThreads, 0, s>>>((const int32_t*)x, (int32_t*)out, n,
-                                                  nullptr, 1);
-    return (int)cudaGetLastError();
+  int32_t* st = nullptr;
+  if (nb > 1) {
+    if (status == nullptr) return (int)cudaErrorInvalidValue;
+    st = (int32_t*)status;
+    // the counter and the flags; the slots are read only behind a flag
+    const cudaError_t err = cudaMemsetAsync(st, 0, flag_words(nb) * sizeof(int32_t), s);
+    if (err != cudaSuccess) return (int)err;
   }
-  if (tot == nullptr) return (int)cudaErrorInvalidValue;
-  prefix_reduce_kernel<<<(unsigned int)nb, kTileThreads, 0, s>>>(
-      (const int32_t*)x, n, (int32_t*)tot, nb);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  prefix_totals_kernel<<<1, kTileThreads, 0, s>>>((int32_t*)tot, nb);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  prefix_scan_kernel<<<(unsigned int)nb, kTileThreads, 0, s>>>(
-      (const int32_t*)x, (int32_t*)out, n, (const int32_t*)tot, nb);
+  const bool vec = n % 4 == 0 && (uintptr_t)x % 16 == 0 && (uintptr_t)out % 16 == 0;
+  if (vec) {
+    prefix_product_kernel<true><<<(unsigned int)nb, kTileThreads, 0, s>>>(
+        (const int32_t*)x, (int32_t*)out, n, st, nb);
+  } else {
+    prefix_product_kernel<false><<<(unsigned int)nb, kTileThreads, 0, s>>>(
+        (const int32_t*)x, (int32_t*)out, n, st, nb);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -45,7 +45,7 @@ _SIGNATURES = {
     "lcp_keccak_pairs": [_P, _LL, _I, _P, _P, _P],
     "lcp_keccak_grind": [_U64, _U64, _U64, _U64, _U64, _LL, _U64, _P, _P],
     "lcp_batch_inverse": [_P, _P, _LL, _LL, _LL, _P, _P, _P],
-    "lcp_prefix_product": [_P, _P, _LL, _P, _P],
+    "lcp_prefix_product": [_P, _P, _LL, _LL, _P, _P],
 }
 
 

@@ -4,11 +4,13 @@ scan kernels (csrc/scan.cu), with their plain PyTorch versions.
 They replace the JAX package's field/device.py:batch_inverse (its two
 ``lax.scan`` over the Pallas product and the Fermat ``inv`` of the chunk
 totals) and prefix_product (its ``lax.scan``, ``associative_scan`` and the
-offset product): on the TPU each is one compiled device loop; here each is
-one call of three kernel launches, where the port used to launch H1 once a
-scan step (1,209 times a batch inverse, 397 a prefix product).  H5 keeps
-no running product in device memory: it reads x twice and writes the
-inverses once.
+offset product): on the TPU each is one compiled device loop; here H5 is
+one call of three kernel launches and H6 one call of one launch (after a
+memset of its status words), where the port used to launch H1 once a scan
+step (1,209 times a batch inverse, 397 a prefix product).  Neither keeps a
+running product in device memory: H5 reads x twice and writes the
+inverses once, H6 reads x once and writes the products once (decoupled
+look-back between its tiles).
 
 Operands are ``(16, n)`` int32 limb tensors (16-bit limbs, Montgomery form,
 canonical).
@@ -17,13 +19,14 @@ canonical).
   kernels.  They take contiguous CUDA tensors of that shape only, under the
   Stark252 prime (the kernels bake it), and raise on anything else before
   building or launching; each adds one to its ``launches`` count a call.
-  Outputs and the totals' scratch come from ``torch.empty``; nothing waits
+  Outputs and the scratch (H5's totals, H6's status words, which the C
+  launcher zeroes on the stream) come from ``torch.empty``; nothing waits
   for the device.
 * :func:`batch_inverse_plain` / :func:`prefix_product_plain` are the chunked
   scans over :func:`cuda_field.mul_plain`, for any prime of ``params`` on
   any device.  CPU tensors use them, as do all tensors of a toy field; the
   chip check compares the kernels against them on the card.
-* :func:`inverse_plan` and :func:`prefix_tiles` are the kernels' schedules,
+* :func:`inverse_plan` and :func:`prefix_plan` are the kernels' schedules,
   which the CPU tests walk with the plain product.
 """
 
@@ -40,9 +43,13 @@ INV_THREADS = 128   # kInvThreads: H5's tile passes, threads a block
 RUN = 4             # kRun: consecutive elements an H5 thread takes
 INV_TILE = INV_THREADS * RUN
 MID_THREADS = 256   # kMidThreads: H5's totals, leaves of a block's tree
-TILE_THREADS = 256  # kTileThreads: H6's threads a tile
+TILE_THREADS = 128  # kTileThreads: H6's threads a tile
 PER_THREAD = 4      # kPerThread: consecutive elements an H6 thread scans
 TILE = TILE_THREADS * PER_THREAD
+# H6's status words (kStatusHead, kSlotWords): the tile counter padded to 8
+# words, a flag a tile padded to a multiple of 8, then a slot of 16 words a
+# tile (its aggregate and its inclusive prefix)
+STATUS_HEAD, SLOT_WORDS = 8, 16
 # H5's totals pass takes 1 or more totals a thread in at most this many
 # blocks, one for each of the H100's 132 SMs
 MID_BLOCKS = 132
@@ -173,9 +180,15 @@ def inverse_plan(n: int) -> tuple:
     return k, q, -(-k // (MID_THREADS * q))
 
 
-def prefix_tiles(n: int) -> int:
-    """H6's tiles of TILE elements over n >= 1 elements (one: no totals)."""
-    return -(-n // TILE)
+def prefix_plan(n: int) -> tuple:
+    """H6's schedule for n >= 1 elements: (tiles, status words).  Tiles of
+    TILE contiguous elements, one block each; a single tile takes no status
+    words, more take the counter and flags (zeroed on every call) and a
+    slot a tile."""
+    nb = -(-n // TILE)
+    if nb == 1:
+        return 1, 0
+    return nb, STATUS_HEAD + -(-nb // 8) * 8 + SLOT_WORDS * nb
 
 
 # ---------------------------------------------------------------------------
@@ -237,13 +250,13 @@ def mont_prefix_product(x: torch.Tensor) -> torch.Tensor:
     out = _scratch((N_LIMBS, n), x)
     if n == 0:
         return out
-    nb = prefix_tiles(n)
-    tot = _scratch((N_LIMBS, nb), x) if nb > 1 else None
+    nb, words = prefix_plan(n)
+    status = _scratch((words,), x) if words else None
     lib = cuda_lib.library()
     with torch.cuda.device(x.device):
         code = lib.lcp_prefix_product(
-            x.data_ptr(), out.data_ptr(), n,
-            None if tot is None else tot.data_ptr(),
+            x.data_ptr(), out.data_ptr(), n, nb,
+            None if status is None else status.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     cuda_lib.check(code, "mont_prefix_product")
     mont_prefix_product.launches += 1

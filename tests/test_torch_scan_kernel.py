@@ -9,9 +9,10 @@ elements are compared exactly (tolerance 0).  The kernels themselves
 holds them against these plain versions bit for bit.  Here
 ``mirror_batch_inverse`` and ``mirror_prefix_product`` walk the kernels'
 index arithmetic (H5's tiles, runs, warp scans and the backward walk, its
-totals' blocks, product tree and two-chain root inverse, H6's tiles,
-threads, warps and the totals' pass, the ragged edge)
-with the plain product, and must give the Python ints' answers; the
+totals' blocks, product tree and two-chain root inverse; H6's tiles, runs
+and warps and its look-back over the tiles' status in seeded completion
+orders with small windows; the ragged edge) with the plain product, and
+must give the Python ints' (and the JAX package's) answers; the
 launchers must refuse what they do not take, and CPU tensors must never
 reach them."""
 
@@ -238,61 +239,116 @@ def _tiles(src: torch.Tensor, tile: int) -> torch.Tensor:
     return src.reshape(16, nb, tile)
 
 
-def _scan_tiles(tiles: torch.Tensor, carry: torch.Tensor, threads: int,
-                per: int):
-    """scan_tile of each of B tiles (16, B, threads * per) from its carry
-    (16, B): thread tid scans elements tid * per .. + per - 1, a warp scan
-    of the threads' products, a scan of the warps' products times the
-    carry; -> the scanned tiles and carry times each tile's product."""
-    nb, warps = tiles.shape[1], threads // 32
-    v = tiles.reshape(16, nb, threads, per)
-    pre = [v[..., 0]]
-    for t in range(1, per):
-        pre.append(mul_plain(pre[-1], v[..., t]))
-    acc = _warp_scan(pre[-1].reshape(16, nb, warps, 32))
-    ex = _lane_before(acc)
-    s = _ones(nb, 32)
-    s[:, :, :warps] = acc[..., 31]
-    s = _warp_scan(s)
-    o = mul_plain(carry[:, :, None], _lane_before(s))
-    total = mul_plain(carry, s[..., warps - 1])
-    off = mul_plain(o[:, :, :warps, None], ex).reshape(16, nb, threads)
-    out = mul_plain(off[..., None], torch.stack(pre, dim=3))
-    return out.reshape(16, nb, threads * per), total
+NONE, AGGREGATE, INCLUSIVE = 0, 1, 2  # a tile's flag (kNone, ...)
+
+
+def _completion_order(nb: int, order) -> list:
+    """The tiles in the order they publish and look back: index order
+    (None), "reverse", or a permutation seeded by ``order``."""
+    if order is None:
+        return list(range(nb))
+    if order == "reverse":
+        return list(range(nb - 1, -1, -1))
+    return np.random.default_rng(order).permutation(nb).tolist()
+
+
+def _look_back(agg: torch.Tensor, window: int, order,
+               per_round: int = 8) -> torch.Tensor:
+    """csrc/scan.cu's look_back over the tiles' aggregates (16, nb): each
+    tile's exclusive prefix (16, nb).  Tiles start ``per_round`` at a time in
+    the completion order and publish their aggregate (tile 0 its inclusive
+    prefix); then every started tile walks back from where it stopped,
+    ``window`` lanes at a time (lane i at tile b - i), against the flags as
+    the round began, and stops at a window with a tile still unpublished
+    until a later round.  In a window with none, lanes 0 .. last (the
+    nearest inclusive prefix, or all of them) multiply their payloads into
+    their own running products; the walk ends at an inclusive prefix, and
+    then xor steps 1, 2, 4, ... <= top (the highest lane that took a
+    payload) multiply the lanes' products into lane 0's.  The tiles that
+    ended publish their inclusive prefix when the round ends.  The walks of
+    a round are batched on axis 1."""
+    nb = agg.shape[1]
+    assert window & (window - 1) == 0 and window <= 32
+    flags = np.full(nb, NONE)
+    slot = {AGGREGATE: _ones(nb), INCLUSIVE: _ones(nb)}  # read behind a flag
+    pre, acc = _ones(nb), _ones(nb, window)  # acc: each lane's product
+    b = np.arange(nb) - 1  # each tile's next window: its nearest tile
+    top = np.zeros(nb, dtype=int)
+    lane = np.arange(window)
+    seq, active = _completion_order(nb, order), np.zeros(0, dtype=int)
+    for start in range(0, nb, per_round):
+        for t in seq[start:start + per_round]:
+            kind = INCLUSIVE if t == 0 else AGGREGATE
+            flags[t], slot[kind][:, t] = kind, agg[:, t]
+        started = [t for t in seq[start:start + per_round] if t]
+        active = np.concatenate([active, np.array(started, dtype=int)])
+        snap, walking, ended = flags.copy(), active, []
+        while len(walking):
+            js = b[walking][:, None] - lane
+            fs = np.where(js >= 0, snap[np.maximum(js, 0)], INCLUSIVE)
+            ready = (fs != NONE).all(axis=1)
+            walking, js, fs = walking[ready], js[ready], fs[ready]
+            if not len(walking):
+                break
+            incl = (fs == INCLUSIVE).any(axis=1)
+            last = np.where(incl, (fs == INCLUSIVE).argmax(axis=1), window - 1)
+            jj = torch.from_numpy(np.maximum(js, 0))
+            vals = torch.where(torch.from_numpy(fs == INCLUSIVE),
+                               slot[INCLUSIVE][:, jj], slot[AGGREGATE][:, jj])
+            use = torch.from_numpy((lane <= last[:, None]) & (js >= 0))
+            w = torch.from_numpy(walking)
+            acc[:, w] = torch.where(use, mul_plain(acc[:, w], vals), acc[:, w])
+            top[walking] = np.maximum(top[walking], last)
+            ended += walking[incl].tolist()
+            b[walking[~incl]] -= window
+            walking = walking[~incl]
+        if ended:
+            e = torch.tensor(ended)
+            lanes, off = acc[:, e], 1
+            while off <= top[ended].max():
+                step = torch.from_numpy(off <= top[ended])[:, None]
+                lanes = torch.where(step, mul_plain(lanes, lanes[..., lane ^ off]),
+                                    lanes)
+                off *= 2
+            pre[:, e] = lanes[..., 0]
+            slot[INCLUSIVE][:, e] = mul_plain(pre[:, e], agg[:, e])
+            flags[ended] = INCLUSIVE
+        assert start + per_round < nb or ended or not len(active), \
+            "no tile finished its look-back"
+        active = np.setdiff1d(active, ended)
+    assert not len(active)
+    return pre
 
 
 def mirror_prefix_product(x: torch.Tensor, threads: int = cs.TILE_THREADS,
-                          per: int = cs.PER_THREAD) -> torch.Tensor:
-    """csrc/scan.cu's H6 (prefix_reduce, prefix_totals, prefix_scan) with
-    tiles of threads * per elements."""
+                          per: int = cs.PER_THREAD, window: int = 32,
+                          order=None) -> torch.Tensor:
+    """csrc/scan.cu's H6 (prefix_product_kernel) with tiles of threads * per
+    elements, thread t of a tile taking elements t * per .. t * per + per -
+    1: the runs' inclusive products (the running product times each next
+    element), a warp scan of their totals, warp 0's
+    scan of the warps' totals (the tile's aggregate), the look-back in the
+    given completion order with a window of ``window`` lanes, then each
+    element times (the tile's prefix times its warp's) times its lane's.
+    Tiles are axis 1, threads axis 2, lanes of a warp the last axis."""
     n = x.shape[1]
-    tile = threads * per
-    tiles = _tiles(x, tile)
-    nb = tiles.shape[1]
-    if nb == 1:
-        out, _ = _scan_tiles(tiles, _ones(1), threads, per)
-        return out.reshape(16, -1)[:, :n]
-    # prefix_reduce: thread tid takes elements it * threads + tid, then the
-    # xor butterfly within warps, then thread 0 over the warps
-    acc = _ones(nb, threads)
-    for it in range(per):
-        acc = mul_plain(acc, tiles[:, :, it * threads:(it + 1) * threads])
-    acc = acc.reshape(16, nb, threads // 32, 32)
-    lane = torch.arange(32)
-    for off in (16, 8, 4, 2, 1):
-        acc = mul_plain(acc, acc[..., lane ^ off])
-    tot = acc[:, :, 0, 0]
-    for u in range(1, threads // 32):
-        tot = mul_plain(tot, acc[:, :, u, 0])
-    # prefix_totals: one block, a tile of totals at a time
-    carry = _ones(1)
-    for base in range(0, nb, tile):
-        part, carry = _scan_tiles(_tiles(tot[:, base:base + tile], tile),
-                                  carry, threads, per)
-        tot[:, base:base + tile] = part[:, 0, :min(tile, nb - base)]
-    # prefix_scan: tile b from the product of the tiles before
-    carry = torch.cat([_ones(1), tot[:, :-1]], dim=1)
-    out, _ = _scan_tiles(tiles, carry, threads, per)
+    warps = threads // 32
+    v = _tiles(x, threads * per).reshape(16, -1, threads, per)  # past n: one
+    nb = v.shape[1]
+    p = [v[..., 0]]
+    for r in range(1, per):
+        p.append(mul_plain(p[-1], v[..., r]))
+    acc = _warp_scan(p[-1].reshape(16, nb, warps, 32))
+    s = _ones(nb, 32)
+    s[:, :, :warps] = acc[..., 31]
+    s = _scan_steps(s, warps, False)
+    o = _lane_before(s)
+    if nb > 1:
+        o = mul_plain(_look_back(s[:, :, warps - 1], window, order)[:, :, None],
+                      o)
+    off = mul_plain(o[:, :, :warps, None], _lane_before(acc))
+    out = mul_plain(off.reshape(16, nb, threads)[..., None],
+                    torch.stack(p, dim=3))
     return out.reshape(16, -1)[:, :n]
 
 
@@ -385,12 +441,46 @@ def test_root_inverse_is_fermat():
     (cs.TILE, cs.TILE_THREADS, cs.PER_THREAD),
     (cs.TILE + 1, cs.TILE_THREADS, cs.PER_THREAD),
     (5 * cs.TILE - 3, cs.TILE_THREADS, cs.PER_THREAD),
-    # tiles of 128: 131 tile totals, so the totals' pass walks two tiles
+    # tiles of 128: 131 tiles, so the look-back walks windows of 32
     (128 * 130 + 7, 64, 2)])
 def test_h6_schedule_matches_python_ints(n, threads, per):
     x = seeded(n + threads, n)
     assert tfd.to_ints(mirror_prefix_product(x, threads, per)) == \
         prefix_ints(x)
+
+
+def h6_zero_tiles(n: int, tile: int) -> tuple:
+    """A run of all-zero tiles (100 .. 104) late in the input, and zeros on
+    the edges of the tiles before and after it."""
+    return (100 * tile - 1, *range(100 * tile, 105 * tile), 105 * tile,
+            105 * tile + 1, n - 1)
+
+
+@pytest.mark.parametrize("n, threads, per, window, order, zeros", [
+    # tiles of 128 over 131 to 134 tiles; completion orders in which every
+    # tile sees only aggregates back to tile 0 (reverse) or a mix
+    (128 * 130 + 7, 32, 4, 32, "reverse", False),
+    (128 * 130 + 7, 32, 4, 32, 1, False),
+    (128 * 131, 64, 2, 32, 2, False),
+    (128 * 131 + 100, 32, 4, 1, 3, False),
+    (128 * 133 + 1, 32, 4, 4, "reverse", False),
+    (128 * 130 + 7, 32, 4, 4, 4, False),
+    (128 * 134 + 5, 32, 4, 4, 5, True)])
+def test_h6_look_back_matches_python_ints(n, threads, per, window, order,
+                                          zeros):
+    x = seeded(n + window, n, h6_zero_tiles(n, threads * per) if zeros
+               else ())
+    got = mirror_prefix_product(x, threads, per, window, order)
+    assert tfd.to_ints(got) == prefix_ints(x)
+
+
+def test_h6_look_back_matches_jax():
+    """A ragged n over tiles of 64 (5 tiles) in a seeded completion order
+    with windows of 4, against the JAX package's prefix_product."""
+    x = seeded(41, 257)
+    want = np.asarray(_jax_prefix(jnp.asarray(limbs_to_numpy(x))))
+    got = mirror_prefix_product(x, 32, 2, window=4, order=6)
+    assert np.array_equal(limbs_to_numpy(got), want)
 
 
 @pytest.mark.parametrize("n", [1, 2, 1000, 1 << 16, (1 << 16) + 1,
@@ -404,8 +494,13 @@ def test_plans_cover_every_element(n):
     assert (k - 1) * cs.INV_TILE < n <= k * cs.INV_TILE and q >= 1
     assert (blocks - 1) * cs.MID_THREADS * q < k <= blocks * cs.MID_THREADS * q
     assert blocks <= cs.MID_BLOCKS
-    nb = cs.prefix_tiles(n)
+    nb, words = cs.prefix_plan(n)
     assert (nb - 1) * cs.TILE < n <= nb * cs.TILE
+    # a single tile takes no status; else the head, the flags padded to 8
+    # words, and a slot a tile, 64 B aligned
+    flags = cs.STATUS_HEAD + -(-nb // 8) * 8
+    assert words == (0 if nb == 1 else flags + cs.SLOT_WORDS * nb)
+    assert flags % 8 == 0 and cs.SLOT_WORDS % 16 == 0
 
 
 # ---------------------------------------------------------------------------
@@ -428,6 +523,12 @@ def test_kernel_constants_match_the_source():
     assert int(consts["kMidThreads"]) == cs.MID_THREADS
     assert int(consts["kTileThreads"]) == cs.TILE_THREADS
     assert int(consts["kPerThread"]) == cs.PER_THREAD
+    assert int(consts["kStatusHead"]) == cs.STATUS_HEAD
+    assert int(consts["kSlotWords"]) == cs.SLOT_WORDS
+    flags = dict(re.findall(r"(k[A-Z]\w+) = (\d+)[,;]", src[
+        src.index("constexpr unsigned kNone"):]))
+    assert (int(flags["kNone"]), int(flags["kAggregate"]),
+            int(flags["kInclusive"])) == (NONE, AGGREGATE, INCLUSIVE)
     body = src[src.index("void set_one("):]
     words = re.findall(r"w\[(\d)\] = (0x[0-9A-Fa-f]+)u;", body)[:8]
     assert sum(int(v, 16) << (32 * int(i)) for i, v in words) == R

@@ -11,9 +11,10 @@ another, such as the parent commit unpacked with ``git archive``, to compare
 two versions in one call: run them in turns, parent, change, change,
 parent), builds its kernels and prints the card (``nvidia-smi``) and one
 JSON line: CUDA-event times of H5 at 1, 2^16, 2^21, 3 * 2^19, 3 * 2^21 and
-3 * 2^23 elements with zeros planted, of H6 at 2^21, 3 * 2^19 and 3 * 2^21,
-and of ``hash.merkle.tree_levels`` over 2^16 and 2^21 leaves, each beside
-the sha256 of its output, which must agree between checkouts.  The inputs
+3 * 2^23 elements and of H6 at 1, 2^16, 2^21, 3 * 2^19, 3 * 2^21 and 2^23,
+with zeros planted, and of ``hash.merkle.tree_levels`` over 2^16 and 2^21
+leaves, each beside the sha256 of its output, which must agree between
+checkouts.  The inputs
 are made on the card from a seed, so that every checkout sees the same.
 """
 
@@ -32,22 +33,25 @@ from chip_smoke import cuda_ms  # noqa: E402
 
 SEED = 20260516
 INVERSE_NS = (1, 1 << 16, 1 << 21, 3 << 19, 3 << 21, 3 << 23)
-PREFIX_NS = (1 << 21, 3 << 19, 3 << 21)
+PREFIX_NS = (1, 1 << 16, 1 << 21, 3 << 19, 3 << 21, 1 << 23)
 TREE_LOGS = (16, 21)
-# zeros at the first runs' and tiles' edges of both H5 designs and mid-way
+# zeros at the first runs' and tiles' edges of both H5 designs and mid-way;
+# for H6 as far from the end (a zero makes every product after it zero)
 ZEROS = (0, 3, 4, 255, 256, 511, 512, 1023, 1024)
 
 
-def elements(torch, n: int, dev, zeros: bool):
-    """(16, n) canonical Montgomery limbs from SEED (below 2^251 < p)."""
+def elements(torch, n: int, dev, zeros: str):
+    """(16, n) canonical Montgomery limbs from SEED (below 2^251 < p), with
+    zeros for ``zeros`` "inverse" or "prefix"."""
     gen = torch.Generator(device=dev).manual_seed(SEED + n)
     x = torch.randint(0, 1 << 16, (16, n), dtype=torch.int32, device=dev,
                       generator=gen)
     x[15] &= 0x7FF
-    if zeros:
-        for e in (*ZEROS, n // 2):
-            if e < n - 1:
-                x[:, e] = 0
+    at = {"inverse": (*ZEROS, n // 2),
+          "prefix": tuple(n - 2 - e for e in ZEROS)}.get(zeros, ())
+    for e in at:
+        if 0 <= e < n - 1:
+            x[:, e] = 0
     return x
 
 
@@ -64,8 +68,9 @@ def main() -> int:
     ap.add_argument("--sweep", action="store_true",
                     help="also time K2 over a whole tree and over one level "
                     "at 2^1 .. 2^21 digests (a checkout with "
-                    "cuda_keccak.keccak_tree), and H5's kernels one by one "
-                    "(torch.profiler) at 3 * 2^21 and 3 * 2^23")
+                    "cuda_keccak.keccak_tree), and H5's and H6's kernels "
+                    "one by one (torch.profiler): H5 at 3 * 2^21 and "
+                    "3 * 2^23, H6 and its memset at 2^21, 3 * 2^21 and 2^23")
     args = ap.parse_args()
     import torch
 
@@ -96,7 +101,8 @@ def main() -> int:
                          ("mont_prefix_product", cs.mont_prefix_product,
                           PREFIX_NS)):
         for n in ns:
-            x = elements(torch, n, dev, name == "mont_batch_inverse")
+            x = elements(torch, n, dev, "inverse" if name ==
+                         "mont_batch_inverse" else "prefix")
             reps = args.reps if n > 1 << 16 else 5 * args.reps
             out[name][n] = {"ms": cuda_ms(torch, lambda: fn(x), reps),
                             "sha256": sha(torch, fn(x))}
@@ -135,14 +141,15 @@ def device_ms(torch, fn, reps: int) -> dict:
 
 def sweep(torch, dev, cs, reps: int) -> dict:
     """K2 over a whole tree and over one level at 2^1 .. 2^21 digests (CUDA
-    events), both kernels' device time at 2^16 and 2^21 leaves, and H5's
-    kernels' device times (torch.profiler)."""
+    events), both kernels' device time at 2^16 and 2^21 leaves, and H5's and
+    H6's kernels' device times (torch.profiler)."""
     from lambdaworks_cairo_prover_tpu_torch.hash import cuda_keccak as ck
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     leaves = torch.randint(-2**31, 2**31 - 1, (1 << 21, 8), dtype=torch.int32,
                            device=dev, generator=gen).view(torch.int64)
-    res = {"tree": {}, "one": {}, "tree_device": {}, "h5_kernels": {}}
+    res = {"tree": {}, "one": {}, "tree_device": {}, "h5_kernels": {},
+           "h6_kernels": {}}
     for k in range(1, 22):
         x = leaves[:1 << k]
         res["tree"][k] = cuda_ms(torch, lambda: ck.keccak_tree(x), reps)
@@ -153,10 +160,16 @@ def sweep(torch, dev, cs, reps: int) -> dict:
                                           reps)
     print(f"[sweep] K2: {res}", flush=True)
     for n in (3 << 21, 3 << 23):
-        x = elements(torch, n, dev, True)
+        x = elements(torch, n, dev, "inverse")
         res["h5_kernels"][n] = device_ms(
             torch, lambda: cs.mont_batch_inverse(x), reps)
         print(f"[sweep] H5 at {n}: {res['h5_kernels'][n]}", flush=True)
+        del x
+    for n in (1 << 21, 3 << 21, 1 << 23):
+        x = elements(torch, n, dev, "prefix")
+        res["h6_kernels"][n] = device_ms(
+            torch, lambda: cs.mont_prefix_product(x), reps)
+        print(f"[sweep] H6 at {n}: {res['h6_kernels'][n]}", flush=True)
         del x
     return res
 

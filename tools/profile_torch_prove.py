@@ -85,6 +85,8 @@ GROUPS = (
     # H5's passes before its redesign (a checkout from before, --root)
     ("inv_forward_kernel", "H5 mont_batch_inverse"),
     ("inv_backward_kernel", "H5 mont_batch_inverse"),
+    ("prefix_product_kernel", "H6 mont_prefix_product"),
+    # H6's passes before its redesign (a checkout from before, --root)
     ("prefix_reduce_kernel", "H6 mont_prefix_product"),
     ("prefix_totals_kernel", "H6 mont_prefix_product"),
     ("prefix_scan_kernel", "H6 mont_prefix_product"),
