@@ -92,7 +92,24 @@ Phases (any failure exits non-zero):
      (K3 where the options grind on the card); H3/H4
      against their plain versions at the local shapes of a 2^21-point,
      52-column four-step transform over 4 ranks, (16, 52, 256, 2048) and
-     (16, 52, 512, 1024).
+     (16, 52, 512, 1024); ``BASELINE`` config 4's layout: the synthetic
+     Cairo1 contract (synthetic_contract.casm) with shard_axis "columns",
+     on the one NCCL rank with the bench options equal to the single-device
+     proof file (K3 launched), on the 4 gloo ranks with test options equal
+     to the JAX package's;
+ 15. ``BASELINE`` config 5 (``[scale]``, tools/config5_scale_torch.py):
+     simple_fibonacci at 2^22 rows with the bench options, single-device
+     and on a one-rank NCCL mesh, cold and warm, verified, the four proofs
+     equal, H1-H5 and K1-K3 launched; at 2^23 rows single-device (the
+     composition's LDE of 2^26 points, past the NTT's old 2^24 cap),
+     verified, its peak and per-phase memory; the whole NTT at 2^24, 2^25
+     and 2^26 points forward and inverse, K2's tree over 2^22 .. 2^25
+     leaves, K1's single-felt leaves at 2^24 and 2^25 points and H5 at the
+     2^23-row prove's DEEP input (2^27 elements, zeros planted) against
+     their plain versions, bit for bit; 4 gloo ranks sharing the card at
+     2^22 rows (the tool's children), every rank's proof equal to the
+     single-device proof, H1, H3/H4, K1 and K2 launched on every rank, the
+     collective bytes by site.
 
 The line before the last is a JSON object with, for each kernel, its launch
 count in phase 10's cold prove (and under ``launches_cairo_fib`` in phase 8,
@@ -102,8 +119,11 @@ could take, at the Cairo run's widest shape (and under ``one_column`` at
 the one-column shape of phase 5), H3 at its widest pass, H4 at the last
 pass of the 2^21 transform (and under ``ten_stages`` at 10 stages in
 place), the whole 2^21 transform under ``whole_ntt``, H3/H4 at the
-four-step's shapes under ``four_step`` and the launches of phase 14's
-one-rank prove under ``launches_parallel``; the last line is
+four-step's shapes under ``four_step``, the launches of phase 14's
+one-rank prove under ``launches_parallel`` (its columns-sharded Cairo1
+prove under ``launches_parallel_columns``), phase 15's 2^22-row cold
+single-device prove under ``launches_scale`` and its kernel records under
+``scale``; the last line is
 ``{"ok": true, "device": {...}}``.  This script imports no JAX.
 """
 
@@ -118,6 +138,7 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURES = os.path.join(ROOT, "tests", "fixtures", "torch_port")
+CASM_PATH = os.path.join(FIXTURES, "synthetic_contract.casm")
 PKG = "lambdaworks_cairo_prover_tpu_torch"
 SEED = 20260516
 FULL_LOG = 19          # the real-size run
@@ -152,6 +173,18 @@ CAIRO_FIB_UNPACKED_PEAK = 33_126_153_216
 MEMORY_FIB_N = 280000   # [memory]: about 1.68 M steps, 2^21 rows x 52 columns
 MEMORY_LOG = 21         # its rows; its LDE has 2^23 points
 PARALLEL_RANKS = 4      # gloo ranks that share the one card in [parallel]
+SCALE_LOG = 22          # [scale]: BASELINE config 5's 2^22 rows, LDE 2^24
+SCALE_BIG_LOG = 23      # single-device, its composition LDE 2^26 points
+SCALE_GLOO_LOG = 22     # 4 gloo ranks through tools/config5_scale_torch.py,
+                        # BASELINE's own rows: 30.4 s at 2^20 and 38.5 s at
+                        # 2^21 with the processes' start (H100 80GB HBM3, 700 W)
+SCALE_NTT_LOGS = (24, 25, 26)  # the whole NTT past the old 2^24 cap
+# K2's tree and K1's single-felt leaves at the new sizes, up to the largest
+# the 2^23-row prove builds (2^25 leaves: its LDE)
+SCALE_TREE_LOGS = tuple(range(SCALE_LOG, SCALE_BIG_LOG + 3))
+SCALE_LEAF_LOGS = (SCALE_LOG + 2, SCALE_BIG_LOG + 2)
+# DEEP's batch inverse at 2^23 rows: 3 frame offsets and z^2, 2^25 points each
+SCALE_DEEP_N = 4 << (SCALE_BIG_LOG + 2)
 
 # The card's peaks (NVIDIA's H100 SXM data sheet): 3.35 TB/s of HBM and 67
 # TFLOP/s of float32 outside the tensor cores, i.e. 33.5e12 FMA instructions
@@ -1209,7 +1242,8 @@ def kernel_wrappers() -> dict:
 
 # kernels that a path does not run: simple_fibonacci has no RAP trace, so
 # no prefix product (its DEEP and boundary inverses take H5)
-NOT_ON_PATH = {"full": {"mont_prefix_product"}}
+NOT_ON_PATH = {"full": {"mont_prefix_product"},
+               "scale": {"mont_prefix_product"}}
 
 
 def reset_counts(torch) -> None:
@@ -1258,10 +1292,11 @@ def phase_full(torch, dev) -> dict:
     return launches
 
 
-def _cairo(program, bench: bool, dev, args=None, mesh=None, **run_options):
+def _cairo(program, bench: bool, dev, args=None, mesh=None,
+           shard_axis: str = "domain", **run_options):
     """generate_prover_args -> generate_cairo_proof -> verify_cairo_proof on
     ``dev``; ``args`` reuses an earlier (trace, public inputs); ``mesh``
-    goes to generate_cairo_proof (the domain-sharded prover);
+    and ``shard_axis`` go to generate_cairo_proof (the sharded prover);
     ``run_options`` go to generate_prover_args (layout, cairo_version)."""
     from lambdaworks_cairo_prover_tpu_torch.cairo.air import (
         generate_cairo_proof, verify_cairo_proof)
@@ -1278,7 +1313,8 @@ def _cairo(program, bench: bool, dev, args=None, mesh=None, **run_options):
                                               **run_options)
     t_args = time.perf_counter() - t0
     t0 = time.perf_counter()
-    proof = generate_cairo_proof(trace, pub, options, device=dev, mesh=mesh)
+    proof = generate_cairo_proof(trace, pub, options, device=dev, mesh=mesh,
+                                 shard_axis=shard_axis)
     t_prove = time.perf_counter() - t0
     t0 = time.perf_counter()
     require(verify_cairo_proof(proof, pub, options),
@@ -1781,7 +1817,7 @@ def phase_cli(dev) -> None:
 _PARALLEL_SCRIPT = r"""
 import datetime, hashlib, json, sys, time, warnings
 root, rank, world, store = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]
-bench, fib_rows = json.loads(sys.argv[5]), int(sys.argv[6])
+bench, fib_rows, casm_path = json.loads(sys.argv[5]), int(sys.argv[6]), sys.argv[7]
 sys.path.insert(0, root)
 warnings.filterwarnings("ignore", category=FutureWarning,
                         message=".*all_gather_into_tensor.*")
@@ -1792,7 +1828,8 @@ from lambdaworks_cairo_prover_tpu_torch.air.examples.simple_fibonacci import (
 from lambdaworks_cairo_prover_tpu_torch.cairo import programs
 from lambdaworks_cairo_prover_tpu_torch.cairo.air import (
     generate_cairo_proof, verify_cairo_proof)
-from lambdaworks_cairo_prover_tpu_torch.cairo.runner import generate_prover_args
+from lambdaworks_cairo_prover_tpu_torch.cairo.runner import (
+    CairoVersion, generate_prover_args)
 from lambdaworks_cairo_prover_tpu_torch.field import cuda_field as cf
 from lambdaworks_cairo_prover_tpu_torch.field import cuda_scan as cs
 from lambdaworks_cairo_prover_tpu_torch.hash import cuda_keccak as ck
@@ -1840,6 +1877,16 @@ proof, secs, launches = counted(lambda: prove(
 out["simple_fibonacci"] = {
     "sha256": hashlib.sha256(serialize_proof(proof)).hexdigest(),
     "verified": verify(proof, fpub, options, FibonacciAIR), "prove_s": secs,
+    "launches": launches}
+# BASELINE config 4's Cairo1 contract, columns sharded
+with open(casm_path, "rb") as f:
+    trace, pub = generate_prover_args(f.read(), cairo_version=CairoVersion.V1,
+                                      device=dev)
+proof, secs, launches = counted(lambda: generate_cairo_proof(
+    trace, pub, test, device=dev, mesh=mesh, shard_axis="columns"))
+out["cairo1_columns"] = {
+    "sha256": hashlib.sha256(write_proof_file(proof, pub.serialize())).hexdigest(),
+    "verified": verify_cairo_proof(proof, pub, test), "prove_s": secs,
     "launches": launches}
 dist.barrier()  # no rank tears its connections down while another uses them
 dist.destroy_process_group()
@@ -1935,6 +1982,7 @@ def phase_parallel(torch, dev) -> dict:
     import torch.distributed as dist
 
     from lambdaworks_cairo_prover_tpu_torch.cairo import programs
+    from lambdaworks_cairo_prover_tpu_torch.cairo.runner import CairoVersion
     from lambdaworks_cairo_prover_tpu_torch.parallel.sharding import make_mesh
 
     program = programs.fibonacci_program(CAIRO_FIB_N)
@@ -1950,8 +1998,34 @@ def phase_parallel(torch, dev) -> dict:
             peak = torch.cuda.max_memory_allocated()
             warm = _cairo(program, bench=True, dev=dev, mesh=mesh,
                           args=(cold["trace"], cold["pub"]))
+            # BASELINE config 4: the Cairo1 contract, columns sharded, with
+            # grinding on the card, against the single-device proof
+            with open(CASM_PATH, "rb") as f:
+                casm = f.read()
+            single = _cairo(casm, bench=True, dev=dev,
+                            cairo_version=CairoVersion.V1)
+            reset_counts(torch)
+            columns = _cairo(casm, bench=True, dev=dev, mesh=mesh,
+                             shard_axis="columns",
+                             args=(single["trace"], single["pub"]))
+            columns_launches = {name: w.launches
+                                for name, w in kernel_wrappers().items()}
         finally:
             dist.destroy_process_group()
+    log(f"[parallel] one NCCL rank, the synthetic Cairo1 contract "
+        f"({single['trace'].n_rows} rows x {columns['columns']} columns), "
+        f"shard_axis='columns', bench options: prove {columns['prove_s']:.3f}"
+        f" s, verified, wrong public inputs rejected; {len(columns['file'])} "
+        f"bytes, equal to the single-device proof file: "
+        f"{columns['file'] == single['file']}; launches {columns_launches}")
+    require(columns["file"] == single["file"], "the columns-sharded Cairo1 "
+            "proof differs from the single-device proof")
+    require(all(columns_launches[k] > 0 for k in (
+        "mont_mul", "add_sub_mod", "ntt_dif_local", "keccak_rows",
+        "keccak_pairs", "keccak_grind", "mont_batch_inverse",
+        "mont_prefix_product")), "[parallel] the columns-sharded Cairo1 prove "
+            "did not launch every kernel of its path (H3 has no pass under "
+            "2^11 points)")
     digest = hashlib.sha256(cold["bytes"]).hexdigest()
     log(f"[parallel] one NCCL rank, fibonacci_program({CAIRO_FIB_N}): "
         f"{cold['trace'].n_rows} rows x {cold['columns']} columns, "
@@ -1969,6 +2043,9 @@ def phase_parallel(torch, dev) -> dict:
     with open(os.path.join(FIXTURES, "cairo_fib5_test_options.proof"),
               "rb") as f:
         want_fib5 = hashlib.sha256(f.read()).hexdigest()
+    with open(os.path.join(FIXTURES, "cairo1_synthetic_test_options.proof"),
+              "rb") as f:
+        want_cairo1 = hashlib.sha256(f.read()).hexdigest()
     with open(os.path.join(FIXTURES, "simple_fibonacci_bench_digest.json")) as f:
         fib_digest = json.load(f)
     require(fib_digest["options"] == BENCH, "digest fixture has other options")
@@ -1981,7 +2058,7 @@ def phase_parallel(torch, dev) -> dict:
         procs = [subprocess.Popen(
             [sys.executable, "-c", _PARALLEL_SCRIPT, ROOT, str(r),
              str(PARALLEL_RANKS), os.path.join(tmp, "store"),
-             json.dumps(BENCH), str(fib_digest["trace_length"])],
+             json.dumps(BENCH), str(fib_digest["trace_length"]), CASM_PATH],
             cwd=ROOT, stdout=logs[r], stderr=subprocess.STDOUT)
             for r in range(PARALLEL_RANKS)]
         try:
@@ -2006,7 +2083,8 @@ def phase_parallel(torch, dev) -> dict:
         ranks.append(json.loads(lines[-1][len("PAR="):]))
     for res in ranks:
         for name, want in (("cairo_fib5", want_fib5),
-                           ("simple_fibonacci", fib_digest["sha256"])):
+                           ("simple_fibonacci", fib_digest["sha256"]),
+                           ("cairo1_columns", want_cairo1)):
             got = res[name]
             log(f"[parallel] gloo rank {res['rank']} of {PARALLEL_RANKS} on "
                 f"{res['device']}, {name}: prove {got['prove_s']:.3f} s, "
@@ -2030,7 +2108,310 @@ def phase_parallel(torch, dev) -> dict:
                     f"{' and K3' if grinds else ' and no K3'}")
     log(f"[parallel] {PARALLEL_RANKS} gloo ranks on one card: "
         f"{time.perf_counter() - t0:.1f} s with the processes' start")
-    return {"launches": launches, "four_step": four_step_kernels(torch, dev)}
+    return {"launches": launches, "columns_launches": columns_launches,
+            "four_step": four_step_kernels(torch, dev)}
+
+
+def scale_tool():
+    """tools/config5_scale_torch.py as a module (the proves, the telemetry)."""
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import config5_scale_torch
+
+    return config5_scale_torch
+
+
+def drop_prove_caches(torch) -> None:
+    """Release the kernel tables, twiddles and domain tables that earlier
+    proves cached, and the allocator's free blocks."""
+    import gc
+
+    from lambdaworks_cairo_prover_tpu_torch.ntt import core as nttc
+    from lambdaworks_cairo_prover_tpu_torch.ntt import cuda_ntt as cn
+    from lambdaworks_cairo_prover_tpu_torch.parallel import sharded_kernels
+    from lambdaworks_cairo_prover_tpu_torch.prover import kernels as pk
+
+    pk._KERNEL_CACHE.clear()
+    sharded_kernels._SHARDED_CACHE.clear()
+    nttc._powers_cache.clear()
+    cn.forget_tables()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def exact_err(torch, a, b) -> int:
+    """max_abs_err without its int64 copies where the two are equal."""
+    require(a.shape == b.shape, f"shape {tuple(a.shape)} != {tuple(b.shape)}")
+    return 0 if torch.equal(a, b) else max_abs_err(torch, a, b)
+
+
+def scale_kernels(torch, dev, per_perm: int) -> dict:
+    """The kernels at [scale]'s new shapes against their plain versions on
+    the card, bit for bit, with their times and bounds: the whole NTT
+    (H3 + H4) at SCALE_NTT_LOGS, one column, forward and inverse; K2's tree
+    and K1's single-felt leaves at SCALE_TREE_LOGS and SCALE_LEAF_LOGS; H5
+    at the 2^23-row prove's DEEP input with zeros planted."""
+    from lambdaworks_cairo_prover_tpu_torch.field import cuda_scan as cs
+    from lambdaworks_cairo_prover_tpu_torch.field import device as fd
+    from lambdaworks_cairo_prover_tpu_torch.field.params import P
+    from lambdaworks_cairo_prover_tpu_torch.hash import cuda_keccak as ck
+    from lambdaworks_cairo_prover_tpu_torch.hash import keccak_device as kd
+    from lambdaworks_cairo_prover_tpu_torch.ntt import core as nttc
+    from lambdaworks_cairo_prover_tpu_torch.ntt import cuda_ntt as cn
+
+    out = {"whole_ntt": [], "trees": [], "leaves": [], "inverse": None}
+    for log_n in SCALE_NTT_LOGS:
+        n = 1 << log_n
+        v = random_columns(torch, 1, n, dev).reshape(16, n)
+        cn.bitrev_indices(log_n, dev)  # built outside the plain times
+        for inverse in (False, True):
+            # the transform itself (no 1/n: that product is H1's, and its
+            # plain version at 2^26 points needs some 40 GB of int64)
+            got = nttc.transform(v, inverse)
+            cn.twiddle_table(log_n, inverse, dev)
+            want, plain_ms = timed(torch, lambda: cn.ntt_plain(v, inverse))
+            err = exact_err(torch, got, want)
+            del got, want
+            rec = {"shape": shape_text(v), "inverse": inverse,
+                   "passes": [tuple(p) for p in cn.ntt_passes(log_n)],
+                   "max_abs_err": err, "plain_ms": plain_ms,
+                   "ms": cuda_ms(torch, lambda: cn.ntt_cuda(v, inverse), 3),
+                   # the array read and written once, the table of n
+                   # twiddles read once; every stage
+                   **bound(2 * ELEM_BYTES * n + TWIDDLE_BYTES * n,
+                           butterfly_ops(n, log_n - 1, log_n))}
+            out["whole_ntt"].append(rec)
+            log(f"[scale] whole NTT 2^{log_n} {'inverse' if inverse else 'forward'}"
+                f" at {rec['shape']} (passes {rec['passes']}): max_abs_err "
+                f"{err}; {rec['ms']:.4f} ms (H3 + H4), {plain_ms:.1f} ms "
+                f"plain, {bound_text(rec)}")
+            require(err == 0, f"the NTT disagrees with the plain NTT at "
+                    f"2^{log_n} points (inverse {inverse})")
+        del v
+        cn.forget_tables(dev)  # 4 GiB a direction of limbs at 2^26
+        torch.cuda.empty_cache()
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    top = 1 << max(SCALE_TREE_LOGS)
+    leaves = torch.randint(-2**31, 2**31 - 1, (top, 8), dtype=torch.int32,
+                           device=dev, generator=gen).view(torch.int64)
+    for log_n in SCALE_TREE_LOGS:
+        n = 1 << log_n
+        x = leaves[:n]
+        before = ck.keccak_pairs.launches
+        got = ck.keccak_tree(x)
+        launches = ck.keccak_pairs.launches - before
+        want, plain_ms = timed(torch, lambda: kd.hash_tree_plain(x))
+        err = exact_err(torch, got, want)
+        del got, want
+        rec = {"n": n, "tree_launches": launches, "max_abs_err": err,
+               "counts": ck.tree_counts(n),
+               "ms": cuda_ms(torch, lambda: ck.keccak_tree(x), 3),
+               "plain_ms": plain_ms,
+               # the leaves read once, the n - 1 nodes written once
+               **bound(32 * n + 32 * (n - 1), per_perm * (n - 1))}
+        out["trees"].append(rec)
+        log(f"[scale] keccak_tree over {n} leaves ({rec['counts']} group "
+            f"counts): max_abs_err {err}, {launches} launch; "
+            f"{rec['ms']:.4f} ms, {plain_ms:.1f} ms plain, {bound_text(rec)}")
+        require(err == 0 and launches == 1, f"keccak_pairs disagrees with its "
+                f"plain version on the tree over {n} leaves, or took "
+                f"{launches} launches")
+    del leaves
+
+    for log_n in SCALE_LEAF_LOGS:
+        n = 1 << log_n
+        col = random_columns(torch, 1, n, dev).reshape(16, n)
+        got = kd.hash_felt_leaves(col)
+        want, plain_ms = timed(
+            torch, lambda: kd.hash_felt_rows_plain(col[:, :, None], 1))
+        err = exact_err(torch, got, want)
+        del got, want
+        rec = {"shape": shape_text(col), "max_abs_err": err,
+               "ms": cuda_ms(torch, lambda: kd.hash_felt_leaves(col), 3),
+               "plain_ms": plain_ms,
+               # the limbs read once, the digests written once
+               **bound(ELEM_BYTES * n + 32 * n,
+                       per_perm * keccak_blocks(1) * n)}
+        out["leaves"].append(rec)
+        log(f"[scale] keccak_rows, single-felt leaves at {rec['shape']}: "
+            f"max_abs_err {err}; {rec['ms']:.4f} ms kernel, {plain_ms:.1f} "
+            f"ms plain, {bound_text(rec)}")
+        require(err == 0, f"keccak_rows disagrees with its plain version at "
+                f"{rec['shape']}")
+        del col
+
+    n = SCALE_DEEP_N
+    x = scan_input(torch, n, dev, "mont_batch_inverse")
+    got = cs.mont_batch_inverse(x)
+    want, plain_ms = timed(torch, lambda: cs.batch_inverse_plain(x))
+    err = exact_err(torch, got, want)
+    idx = [0, 1, n // 2 - 1, n // 2, n // 2 + 1, n - 2, n - 1]
+    xs, gs = fd.to_ints(x[:, idx]), fd.to_ints(got[:, idx])
+    del got, want
+    nonzero = int((x != 0).any(dim=0).sum())
+    rec = {"shape": shape_text(x), "n": n, "nonzero": nonzero,
+           "max_abs_err": err, "plain_ms": plain_ms,
+           "ms": cuda_ms(torch, lambda: cs.mont_batch_inverse(x), 3),
+           # the elements read once and written once; 3 products a nonzero
+           # element and one root inversion
+           **bound(2 * ELEM_BYTES * n,
+                   OPS_MUL * (3 * nonzero + root_products()))}
+    out["inverse"] = rec
+    log(f"[scale] mont_batch_inverse at {rec['shape']} (DEEP at 2^"
+        f"{SCALE_BIG_LOG} rows, {n - nonzero} zeros planted): max_abs_err "
+        f"{err}; {rec['ms']:.4f} ms kernel, {plain_ms:.1f} ms plain, "
+        f"{bound_text(rec)}")
+    require(err == 0 and gs == [pow(v, P - 2, P) for v in xs],
+            f"mont_batch_inverse disagrees with its plain version or with "
+            f"Python ints at (16, {n})")
+    del x
+    torch.cuda.empty_cache()
+    return out
+
+
+def scale_records(kernels: dict, name: str) -> list:
+    """The [scale] records of one kernel for the kernels line."""
+    return {"ntt_dif_stages": kernels["whole_ntt"],
+            "ntt_dif_local": kernels["whole_ntt"],
+            "keccak_pairs": kernels["trees"],
+            "keccak_rows": kernels["leaves"],
+            "mont_batch_inverse": [kernels["inverse"]]}.get(name, [])
+
+
+def phase_scale(torch, dev, per_perm: int) -> dict:
+    """BASELINE config 5 on the card (the port's tools/config5_scale_torch.py
+    in this process and in child processes): simple_fibonacci at 2^SCALE_LOG
+    rows with the bench options, cold and warm, single-device and on a
+    one-rank NCCL mesh (domain-sharded), verified, all four proofs equal,
+    every kernel of the path launched in the single-device cold prove
+    (launches_scale); at 2^SCALE_BIG_LOG rows single-device (the
+    composition's LDE of 2^26 points, over the old 2^24 cap), verified, with
+    its peak memory and per-phase bytes; the kernels at the new shapes
+    (scale_kernels); and SCALE_GLOO_LOG rows on PARALLEL_RANKS gloo ranks
+    sharing the card (the tool's --ranks children), every rank's proof equal
+    to the single-device one, H1, H3/H4, K1 and K2 launched on every rank,
+    the collectives' bytes by site."""
+    import datetime
+    import tempfile
+
+    import torch.distributed as dist
+
+    from lambdaworks_cairo_prover_tpu_torch.parallel.sharding import make_mesh
+
+    c5 = scale_tool()
+    options = c5._options(True)
+    drop_prove_caches(torch)
+    t0 = time.perf_counter()
+    trace = c5.fib_trace(SCALE_LOG, dev)
+    trace_s = time.perf_counter() - t0
+    log(f"[scale] simple_fibonacci at 2^{SCALE_LOG} rows (LDE 2^"
+        f"{SCALE_LOG + 2} points), bench options; trace {trace_s:.3f} s "
+        f"(python ints, then the ingest)")
+    runs, shas = {}, {}
+
+    def one(tag, mesh=None):
+        with c5.Collectives() as coll:
+            proof, data, wall = c5.prove_fib(trace, options, dev, mesh)
+        v = c5.verify_fib(proof, options)
+        rounds = ", ".join(f"{k} {t:.3f}" for k, t in proof._timings.items())
+        shas[tag] = hashlib.sha256(data).hexdigest()
+        log(f"[scale] {tag}: prove {wall:.3f} s ({rounds}); verify "
+            f"{v['verify_s']:.3f} s, {len(data)} bytes, sha256 {shas[tag]}"
+            + (f"; collectives {coll.by_site}" if mesh is not None else ""))
+        require(v["verified"] and v["wrong_public_inputs_rejected"],
+                f"[scale] {tag}: the proof does not verify, or wrong public "
+                f"inputs were accepted")
+        runs[tag] = {"prove_s": wall, "timings": dict(proof._timings)}
+
+    reset_counts(torch)
+    one("single-device cold")
+    launches = read_counts("scale")
+    peak = torch.cuda.max_memory_allocated()
+    one("single-device warm")
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+            rank=0, world_size=1, timeout=datetime.timedelta(seconds=600))
+        try:
+            mesh = make_mesh(1)
+            one("one NCCL rank cold", mesh)
+            one("one NCCL rank warm", mesh)
+        finally:
+            dist.destroy_process_group()
+    require(len(set(shas.values())) == 1, f"[scale] the 2^{SCALE_LOG}-row "
+            f"proofs differ: {shas}")
+    log(f"[scale] 2^{SCALE_LOG} rows: the four proofs equal; single-device "
+        f"cold peak {peak} bytes ({peak / 2**30:.2f} GiB)")
+    del trace
+    drop_prove_caches(torch)
+
+    # 2^23 rows on one card: the composition's halves are evaluated on 2^26
+    # points, which the port refused before
+    t0 = time.perf_counter()
+    trace = c5.fib_trace(SCALE_BIG_LOG, dev)
+    big_trace_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    with c5.PhaseMemory(dev) as mem:
+        proof, data, wall = c5.prove_fib(trace, options, dev)
+    big_peak = torch.cuda.max_memory_allocated()
+    v = c5.verify_fib(proof, options)
+    rounds = ", ".join(f"{k} {t:.3f}" for k, t in proof._timings.items())
+    log(f"[scale] 2^{SCALE_BIG_LOG} rows single-device: trace {big_trace_s:.3f}"
+        f" s, cold prove {wall:.3f} s ({rounds}); verify {v['verify_s']:.3f} "
+        f"s; {len(data)} bytes, sha256 {hashlib.sha256(data).hexdigest()}; "
+        f"peak {big_peak} bytes ({big_peak / 2**30:.2f} GiB)")
+    for p in mem.phases:
+        log(f"[scale] 2^{SCALE_BIG_LOG} rows, {p['phase']}: allocated "
+            f"{p['allocated_bytes']}, peak {p['peak_bytes']}, reserved "
+            f"{p['reserved_bytes']} bytes")
+    require(v["verified"] and v["wrong_public_inputs_rejected"],
+            f"[scale] the 2^{SCALE_BIG_LOG}-row proof does not verify, or "
+            f"wrong public inputs were accepted")
+    del trace, proof, data
+    drop_prove_caches(torch)
+
+    kernels = scale_kernels(torch, dev, per_perm)
+    drop_prove_caches(torch)
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "tools", "config5_scale_torch.py"),
+         "--ranks", str(PARALLEL_RANKS), "--log-rows", str(SCALE_GLOO_LOG),
+         "--bench-options", "--equality-log-rows", "0", "--timeout", "400"],
+        cwd=ROOT, capture_output=True, text=True, timeout=460)
+    gloo_s = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    require(proc.returncode == 0 and lines, f"[scale] config5_scale_torch.py "
+            f"--ranks {PARALLEL_RANKS} failed (exit code {proc.returncode}):\n"
+            f"{proc.stdout[-4000:]}\n{proc.stderr[-6000:]}")
+    for line in lines[:-1]:
+        log(f"[scale] {line}")
+    rec = json.loads(lines[-1])
+    require(rec["ok"] and rec["ranks_equal"] and rec["single_device"]["equal"]
+            and rec["n_devices"] == PARALLEL_RANKS,
+            f"[scale] the {PARALLEL_RANKS}-rank proofs differ from the "
+            f"single-device proof or do not verify")
+    for r in rec["ranks"]:
+        counts = r["launches"]
+        log(f"[scale] gloo rank {r['rank']} of {PARALLEL_RANKS}: cold prove "
+            f"{r['prove_wall_s']['cold']:.3f} s, warm "
+            f"{r['prove_wall_s']['warm']:.3f} s, peak "
+            f"{r['peak_device_bytes']['cold']} bytes, launches {counts}")
+        require(counts["mont_mul"] > 0 and counts["keccak_rows"] > 0
+                and counts["keccak_pairs"] > 0
+                and counts["ntt_dif_stages"] + counts["ntt_dif_local"] > 0,
+                f"[scale] gloo rank {r['rank']}: H1, H3/H4, K1 or K2 not "
+                f"launched")
+    for site, c in rec["collective_bytes_by_site"].items():
+        log(f"[scale] {PARALLEL_RANKS} gloo ranks, 2^{SCALE_GLOO_LOG} rows, "
+            f"cold prove, {site}: {c['calls']} calls, {c['bytes_sent']} bytes "
+            f"sent, {c['bytes_received']} received (all ranks)")
+    log(f"[scale] {PARALLEL_RANKS} gloo ranks: sha256 {rec['proof_sha256']} on"
+        f" every rank, equal to the single-device proof; single-device "
+        f"{rec['single_device']['prove_s']:.3f} s; {gloo_s:.1f} s with the "
+        f"processes' start")
+    return {"launches": launches, "kernels": kernels, "runs": runs,
+            "peak": peak, "big_peak": big_peak, "gloo": rec}
 
 
 SOURCES = {
@@ -2098,6 +2479,8 @@ def main() -> int:
         phase(phase_toy_field)
         phase(phase_cli, dev)
         par = phase(phase_parallel, torch, dev)
+        scale = phase(phase_scale, torch, dev,
+                      kern["keccak_pairs"]["ops_per_permutation"])
         bad = sorted(m for m in sys.modules if m.split(".")[0] in
                      ("jax", "jaxlib", "lambdaworks_cairo_prover_tpu"))
         require(not bad, f"imported {bad}")
@@ -2114,8 +2497,12 @@ def main() -> int:
          "launches_simple_fibonacci": launches_fib[name],
          "launches_parallel": par["launches"][name],
          "launches_memory": memory["launches"][name],
+         "launches_scale": scale["launches"][name],
+         "launches_parallel_columns": par["columns_launches"][name],
          "max_abs_err": max(rec["max_abs_err"],
-                            memory["ntt_errs"].get(name, 0)),
+                            memory["ntt_errs"].get(name, 0),
+                            *[r["max_abs_err"] for r in scale_records(
+                                scale["kernels"], name)]),
          "ms": rec["ms"],
          "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
          "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
@@ -2123,7 +2510,9 @@ def main() -> int:
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")},
          **({"four_step": par["four_step"][name]}
-            if name in par["four_step"] else {})}
+            if name in par["four_step"] else {}),
+         **({"scale": scale_records(scale["kernels"], name)}
+            if scale_records(scale["kernels"], name) else {})}
         for name, rec in kern.items()
     ]
     log(f"[total] {time.perf_counter() - t_start:.1f} s")

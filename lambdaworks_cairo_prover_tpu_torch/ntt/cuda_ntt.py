@@ -25,7 +25,6 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
 from .. import cuda_lib
@@ -40,10 +39,19 @@ LAST_LOG = 7    # chunk of the last pass of a transform above 2^LOCAL_LOG:
                 # 2^(TILE_LOG - LAST_LOG) = 16 chunks a block, so that the
                 # natural-order writes are runs of 16 words
 MAX_STAGES = 8  # of one H3 pass: 256 rows by 8 columns
-MAX_LOG_N = 24
+# The launchers' own limit (csrc/ntt.cu: log_n <= 30, so that a block's chunk
+# index fits the int that rev_bits takes); every element index there is a
+# long long, and the grid, columns x 2^(log_n - TILE_LOG) blocks, is checked
+# against 2^31 there.
+# Memory binds first on an 80 GB card: a one-column transform of 2^28 points
+# holds 16 GiB in, 16 GiB out and 8 GiB of packed twiddles (and 32 GiB while
+# the table is built).  Stark252's two-adicity (192) is no limit.
+MAX_LOG_N = 30
 
-_twiddle_cache: dict = {}  # (inverse, device) -> largest (16, n) table built
-_packed_cache: dict = {}   # (inverse, device) -> largest (n, 8) table built
+# (inverse, device) -> the largest table built; it stays, and a transform of
+# 2^26 points keeps 4 GiB a direction of limbs or 2 GiB packed (forget_tables)
+_twiddle_cache: dict = {}  # (16, n) limb tables: the plain versions
+_packed_cache: dict = {}   # (n, 8) packed tables: the kernels
 _bitrev_cache: dict = {}   # (log_n, device) -> int64 permutation
 
 
@@ -90,15 +98,24 @@ def packed_twiddle_table(log_n: int, inverse: bool, device) -> torch.Tensor:
     return tab[:n]
 
 
+def forget_tables(device=None) -> None:
+    """Drop the cached twiddle tables and bit-reversal permutations (of
+    ``device``, or of every device)."""
+    for cache in (_twiddle_cache, _packed_cache, _bitrev_cache):
+        for key in [k for k in cache
+                    if device is None or k[1] == torch.device(device)]:
+            del cache[key]
+
+
 def bitrev_indices(log_n: int, device) -> torch.Tensor:
     device = torch.device(device)
     key = (log_n, device)
     if key not in _bitrev_cache:
-        idx = np.arange(1 << log_n)
-        rev = np.zeros(1 << log_n, dtype=np.int64)
+        idx = torch.arange(1 << log_n, device=device)
+        rev = torch.zeros_like(idx)
         for b in range(log_n):
             rev |= ((idx >> b) & 1) << (log_n - 1 - b)
-        _bitrev_cache[key] = torch.from_numpy(rev).to(device)
+        _bitrev_cache[key] = rev
     return _bitrev_cache[key]
 
 

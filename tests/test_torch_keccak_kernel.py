@@ -220,11 +220,20 @@ def test_tree_block_matches_the_source():
     assert 2 * ck.TREE_THREADS == 1 << ck.TREE_LEVELS
     assert ck.TREE_GROUP * (ck.TREE_THREADS * 2 >> ck.TREE_STEP) == \
         2 * ck.TREE_THREADS
-    counts = {n: ck.tree_counts(n) for n in (1, 2, 4, 1 << 9, 1 << 10,
-                                              1 << 11, 1 << 13, 1 << 21)}
-    # 2^21: rounds over 2^21, 2^19, ..., 2^11 children: 1024 + ... + 1
+    sizes = (1, 2, 4, 1 << 9, 1 << 10, 1 << 11, 1 << 13) + tuple(
+        1 << k for k in range(21, 27))
+    counts = {n: ck.tree_counts(n) for n in sizes}
+    # 2^21: rounds over 2^21, 2^19, ..., 2^11 children: 1024 + ... + 1;
+    # 2^22: over 2^22, ..., 2^12 (8 tasks: 2 groups) and 2^10 (2 tasks: 1);
+    # the trees of simple_fibonacci at 2^20 .. 2^24 rows (LDE 2^22 .. 2^26)
     assert counts == {1: 0, 2: 0, 4: 0, 1 << 9: 0, 1 << 10: 1, 1 << 11: 1,
-                      1 << 13: 4 + 1, 1 << 21: 1365}
+                      1 << 13: 4 + 1, 1 << 21: 1365,
+                      1 << 22: 2048 + 512 + 128 + 32 + 8 + 2 + 1,
+                      1 << 23: 4096 + 1024 + 256 + 64 + 16 + 4 + 1,
+                      1 << 24: 8192 + 2048 + 512 + 128 + 32 + 8 + 2 + 1,
+                      1 << 25: 16384 + 4096 + 1024 + 256 + 64 + 16 + 4 + 1,
+                      1 << 26: 32768 + 8192 + 2048 + 512 + 128 + 32 + 8 + 2
+                      + 1}
 
 
 def test_tree_levels_are_views_of_one_buffer():

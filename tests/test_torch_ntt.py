@@ -95,6 +95,79 @@ def test_pass_list_covers_every_stage_once(log_n):
     assert log_n != 21 or len(passes) == 3
 
 
+def test_pass_list_past_the_old_cap():
+    """Transforms of 2^25 and 2^26 points (simple_fibonacci's composition
+    LDE at 2^22 and 2^23 rows) have a pass list: three H3 passes and the
+    last H4 pass of 7 stages."""
+    P_ = cn.Pass
+    assert cn.MAX_LOG_N >= 26
+    assert cn.ntt_passes(25) == [P_(24, 6, False, False), P_(18, 6, False, False),
+                                 P_(12, 6, False, False), P_(6, 7, True, True)]
+    assert cn.ntt_passes(26) == [P_(25, 7, False, False), P_(18, 6, False, False),
+                                 P_(12, 6, False, False), P_(6, 7, True, True)]
+    with pytest.raises(ValueError, match="outside"):
+        cn.ntt_passes(cn.MAX_LOG_N + 1)
+
+
+def _h3_pairs(log_n: int, log_m_hi: int, n_stages: int, tile: int):
+    """The pairs and twiddle entries of one H3 block (one column), with
+    csrc/ntt.cu's index arithmetic: ntt_dif_stages_kernel's base and
+    strides, tile_stages' pairing and entry.  Returns (stage half-size m,
+    lower position, upper position, twiddle entry) as int64 arrays."""
+    r = n_stages
+    lo = log_m_hi - r + 1
+    log_t = min(cn.TILE_LOG - r, lo)
+    mid = tile & ((1 << (lo - log_t)) - 1)
+    base = ((tile >> (lo - log_t)) << (log_m_hi + 1)) + (mid << log_t)
+    row = np.arange(1 << r, dtype=np.int64)[:, None]
+    col = np.arange(1 << log_t, dtype=np.int64)[None, :]
+    out = []
+    for k in range(r - 1, -1, -1):
+        m = 1 << (lo + k)
+        low = row[(row[:, 0] >> k) & 1 == 0]
+        p = base + low * (1 << lo) + col
+        q = base + (low + (1 << k)) * (1 << lo) + col
+        entry = m + ((low % (1 << k)) << lo) + (mid << log_t) + col
+        out.append((m, p.ravel(), q.ravel(), entry.ravel()))
+    return out
+
+
+@pytest.mark.parametrize("log_n", [25, 26, cn.MAX_LOG_N])
+def test_twiddle_indexing_at_the_cap(log_n):
+    """At sizes no CPU test transforms, H3's blocks pair the points and read
+    the twiddle entries that the plain DIF stage does (dif_stage_plain: the
+    pair (p, p + m) with p mod 2m < m takes tw[m + p mod m]), every entry
+    inside the 2^log_n-entry table: the first, a middle and the last block
+    of every H3 pass of the pass list.  The entries of stage m are the
+    powers of a root of order 2m, which the field has at every stage
+    read."""
+    from lambdaworks_cairo_prover_tpu_torch.field.params import (
+        get_primitive_root_of_unity)
+
+    n = 1 << log_n
+    seen = set()
+    for p_ in cn.ntt_passes(log_n):
+        if p_.local:
+            continue
+        lo = p_.log_m_hi - p_.n_stages + 1
+        blocks = n >> (p_.n_stages + min(cn.TILE_LOG - p_.n_stages, lo))
+        for tile in (0, blocks // 2 + 1, blocks - 1):
+            for m, p, q, entry in _h3_pairs(log_n, p_.log_m_hi, p_.n_stages,
+                                            tile):
+                assert np.array_equal(q, p + m)
+                assert np.all(p % (2 * m) < m)
+                assert np.array_equal(entry, m + p % m)
+                assert entry.min() >= m and entry.max() < min(2 * m, n)
+                seen.add((m, int(entry.max())))
+    # every stage of the H3 passes was read, and its part of the table,
+    # w_{2m}^j (cn._build_twiddles), has a root of order 2m to take
+    assert {m for m, _ in seen} == {1 << s for s in range(
+        cn.ntt_passes(log_n)[-1].n_stages, log_n)}
+    for m, _ in seen:
+        w = get_primitive_root_of_unity(m.bit_length())
+        assert pow(w, m, P) == P - 1
+
+
 @pytest.mark.parametrize("log_n,log_m_hi,n_stages",
                          [(4, 3, 4), (7, 6, 3), (7, 4, 5), (9, 8, 1)])
 def test_plain_stage_passes(log_n, log_m_hi, n_stages):

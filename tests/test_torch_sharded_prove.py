@@ -13,7 +13,8 @@ fixtures, so every rank's proof must equal them byte for byte (tolerance
   on 4 ranks, whose FRI layers fall below the four-step plan and then
   below D points, where they are replicated;
 * ``shard_axis="columns"``: the same Cairo fib(5) and simple_fibonacci on
-  4 ranks;
+  4 ranks, and the synthetic Cairo1 contract (synthetic_contract.casm,
+  BASELINE config 4's Cairo1 arm) on 2;
 * the sharded ``fri_commit_chain`` on 4 ranks against the JAX package's
   chain on the input of fri_chain.json, a partial plan and the full chain;
 * an unknown ``shard_axis`` and a CUDA device with a CPU mesh raise
@@ -41,6 +42,7 @@ FIB = {"kind": "prove", "air": "simple_fibonacci", "rows": 1024}
 CAIRO = {"kind": "prove", "air": "cairo", "fib": 5}
 FIB_FIXTURE = "simple_fibonacci_1024_test_options.proof"
 CAIRO_FIXTURE = "cairo_fib5_test_options.proof"
+CAIRO1_FIXTURE = "cairo1_synthetic_test_options.proof"
 # (world, case, fixture) of every prove
 PROVES = {
     "domain-fib-2": (2, dict(FIB, shard_axis="domain"), FIB_FIXTURE),
@@ -48,6 +50,8 @@ PROVES = {
     "domain-cairo-4": (4, dict(CAIRO, shard_axis="domain"), CAIRO_FIXTURE),
     "columns-cairo-4": (4, dict(CAIRO, shard_axis="columns"), CAIRO_FIXTURE),
     "columns-fib-4": (4, dict(FIB, shard_axis="columns"), FIB_FIXTURE),
+    "columns-cairo1-2": (2, {"kind": "prove", "air": "cairo1",
+                             "shard_axis": "columns"}, CAIRO1_FIXTURE),
 }
 EXTRA = {2: [{"kind": "device_mismatch"}],
          4: [{"kind": "fri_chain", "plan": "partial"},

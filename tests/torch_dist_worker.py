@@ -155,10 +155,16 @@ def _prove(mesh, case):
     from lambdaworks_cairo_prover_tpu_torch.cairo.air import (
         generate_cairo_proof, verify_cairo_proof)
     from lambdaworks_cairo_prover_tpu_torch.cairo.runner import (
-        generate_prover_args)
+        CairoVersion, generate_prover_args)
 
-    trace, pub = generate_prover_args(
-        programs.fibonacci_program(case["fib"]), device="cpu")
+    if case["air"] == "cairo1":
+        # the synthetic CASM contract (BASELINE config 4's Cairo1 arm)
+        with open(os.path.join(FIXTURES, "synthetic_contract.casm"), "rb") as f:
+            trace, pub = generate_prover_args(
+                f.read(), cairo_version=CairoVersion.V1, device="cpu")
+    else:
+        trace, pub = generate_prover_args(
+            programs.fibonacci_program(case["fib"]), device="cpu")
     proof = generate_cairo_proof(trace, pub, options, device="cpu", mesh=mesh,
                                  shard_axis=axis)
     return (write_proof_file(proof, pub.serialize()),
