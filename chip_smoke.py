@@ -12,7 +12,9 @@ Phases (any failure exits non-zero):
      (H1 mont_mul, H2 add_sub_mod, H3 ntt_dif_stages, H4 ntt_dif_local), at
      the shapes of both real-size runs below: one 2^21-point column, and
      the Cairo run's stacks of 15 and 8 columns (H1, H2) and of 34 and 18
-     columns (H3, H4) of 2^21 points.  H3 and H4: every pass of the
+     columns (H3, H4) of 2^21 points; H1 and H2 with each operand as limbs
+     and as packed words (views cut as the prover cuts them) into both
+     output layouts, timed in both layouts.  H3 and H4: every pass of the
      transforms those runs make (2^21 and 2^19 points at 1, 34 and 18
      columns, 2^22 at one), H3 in place and out of place, and at 2^21 also
      one stage alone and H4 on 2^10-point chunks in place; and the whole
@@ -48,7 +50,9 @@ Phases (any failure exits non-zero):
   8. the Cairo real-size run: generate_prover_args(fibonacci_program(70000))
      -> generate_cairo_proof with the bench options (2^19 rows x 52 columns),
      cold and warm, -> verify_cairo_proof; every kernel must be launched,
-     H1 fewer than 600 times in the cold prove;
+     H1 fewer than 600 times in the cold prove; no fd.unpack or fd.pack
+     call inside round 2, DEEP's evaluations or the OOD dot products of the
+     warm prove;
      then both FRI commit routes (``[fri-routes]``): a warm prove whose
      on-device FRI chain runs under torch.cuda.set_sync_debug_mode("error")
      (no host sync before its one readback), and a warm prove through the
@@ -116,7 +120,8 @@ count in phase 10's cold prove (and under ``launches_cairo_fib`` in phase 8,
 ``launches_memory`` in phase 9 and ``launches_simple_fibonacci`` in phase 5), its largest disagreement with the plain
 version, its time against the plain version's and the least time the card
 could take, at the Cairo run's widest shape (and under ``one_column`` at
-the one-column shape of phase 5), H3 at its widest pass, H4 at the last
+the one-column shape of phase 5; H1 and H2 on packed operands into a packed
+result, their limb layout's times under ``limbs``), H3 at its widest pass, H4 at the last
 pass of the 2^21 transform (and under ``ten_stages`` at 10 stages in
 place), the whole 2^21 transform under ``whole_ntt``, H3/H4 at the
 four-step's shapes under ``four_step``, the launches of phase 14's
@@ -202,6 +207,7 @@ INT32_OPS_PER_S = 67e12 / 2 / 2
 OPS_MUL = 64 + 8 + 8
 OPS_ADD = 16
 ELEM_BYTES = 64  # 16 int32 limb words
+PACKED_BYTES = 32  # 8 int32 words of two limbs each
 TWIDDLE_BYTES = 32  # an entry of the packed table the NTT kernels read
 
 
@@ -322,6 +328,31 @@ def cuda_ms(torch, fn, reps: int, warm_up: bool = True) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(torch, fn, reps: int, replays: int = 5) -> float:
+    """Milliseconds of one call of ``fn``: a CUDA graph of ``reps`` calls,
+    replayed once to warm up and then ``replays`` times, the median replay
+    over ``reps``.  The card's time for the kernels without the host's time
+    to launch them (a wrapper that takes longer to call than its kernel
+    takes to run leaves the card idle between launches otherwise)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(replays):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return sorted(times)[replays // 2]
+
+
 def timed(torch, fn) -> tuple:
     """(result, milliseconds on the card) of one call of ``fn``."""
     start = torch.cuda.Event(enable_timing=True)
@@ -372,15 +403,33 @@ def random_columns(torch, cols: int, n: int, device):
     return x
 
 
-def err_by_columns(torch, got, plain, *operands) -> int:
-    """Largest |got - plain(*operands)| over (16, cols, n) tensors.  The plain
-    version goes one column at a time, which bounds its int64 temporaries; an
-    operand with one column is shared by all."""
-    err = 0
-    for c in range(got.shape[1]):
-        cols = [t if t.shape[1] == 1 else t[:, c:c + 1] for t in operands]
-        err = max(err, max_abs_err(torch, got[:, c:c + 1], plain(*cols)))
-    return err
+def layout_errs(torch, cf, x, y, px=None, py=None,
+                by_columns: bool = False) -> dict:
+    """H1 and H2 on (16, ...) limb operands x and y, each handed over in both
+    layouts (limbs, and packed: px and py, views of a packed tensor cut as x
+    and y are, or else cf.pack_words of them), into both output layouts,
+    against the plain versions: {kernel: largest |difference|} over the
+    limbs.  The plain result is computed once an op (one column at a time
+    with ``by_columns``, which bounds its int64 temporaries)."""
+    errs = {"mont_mul": 0, "add_sub_mod": 0}
+    px = cf.pack_words(x) if px is None else px
+    py = cf.pack_words(y) if py is None else py
+    cols = torch.broadcast_shapes(x.shape[1:], y.shape[1:])[0]
+    for name, op, plain in (("mont_mul", None, cf.mul_plain),
+                            ("add_sub_mod", "add", cf.add_plain),
+                            ("add_sub_mod", "sub", cf.sub_plain)):
+        want = (torch.cat([plain(*[t if t.shape[1] == 1 else t[:, c:c + 1]
+                                   for t in (x, y)]) for c in range(cols)],
+                          dim=1) if by_columns else plain(x, y))
+        for xx in (x, px):
+            for yy in (y, py):
+                for packed in (False, True):
+                    got = (cf.mont_mul(xx, yy, packed) if op is None
+                           else cf.add_sub_mod(xx, yy, op, packed))
+                    if packed:
+                        got = cf.unpack_words(got)
+                    errs[name] = max(errs[name], max_abs_err(torch, got, want))
+    return errs
 
 
 def shape_text(*tensors) -> str:
@@ -561,42 +610,48 @@ def phase_kernels(torch, dev) -> dict:
     sparse = torch.empty((16, 1 << 14), dtype=torch.int32, device=dev)
     sparse[0::2] = torch.tensor([0, 1, 0, 0xFFFF], dtype=torch.int32, device=dev)[pick]
     sparse[1::2] = torch.tensor([0, 0, 0x8000, 0xFFFF], dtype=torch.int32, device=dev)[pick]
+    # 2^17 points cut from 4 columns: two runs, read in place (the limbs
+    # with a row stride of 2^20 + 3, the packed words 16-byte aligned)
+    cut = (slice(None), slice(None), slice(8, 8 + (1 << 17)))
+    a4, pa4 = a2[cut], cf.pack_words(a2)[cut]
     cases = [(a, b), (a, s), (s, b), (a2, col), (col, a2), (a2, a2[:, 1:2]),
-             (sparse, sparse.flip(1)), (sparse, a[:, :1 << 14])]
-    for x, y in cases:
-        errs["mont_mul"] = max(errs["mont_mul"], max_abs_err(
-            torch, cf.mont_mul(x, y), cf.mul_plain(x, y)))
-        errs["add_sub_mod"] = max(
-            errs["add_sub_mod"],
-            max_abs_err(torch, cf.add_sub_mod(x, y, "add"), cf.add_plain(x, y)),
-            max_abs_err(torch, cf.add_sub_mod(x, y, "sub"), cf.sub_plain(x, y)))
+             (sparse, sparse.flip(1)), (sparse, a[:, :1 << 14]),
+             (a4, col, pa4), (a4, a2[:, 1:2, :1 << 17], pa4)]
+    for x, y, *packed in cases:
+        for name, e in layout_errs(torch, cf, x, y, *packed).items():
+            errs[name] = max(errs[name], e)
     # spot-check against python ints as well
     xs, ys = fd.to_ints(a[:, -8:]), fd.to_ints(b[:, -8:])
     require(fd.to_ints(cf.mont_mul(a[:, -8:], b[:, -8:])) ==
             [x * y % P for x, y in zip(xs, ys)], "mont_mul != python ints")
     for name, e in errs.items():
-        log(f"[kernels] {name} vs plain at 2^{MULADD_LOG}+3 (and broadcasts): "
-            f"max_abs_err {e}")
+        log(f"[kernels] {name} vs plain at 2^{MULADD_LOG}+3 (and broadcasts), "
+            f"every layout pair and output layout: max_abs_err {e}")
         require(e == 0, f"{name} disagrees with its plain version")
 
     # the simple_fibonacci path's shape: one (16, 2^21) LDE-sized operand pair
     lde = 1 << LDE_LOG
     big_a = random_limbs(torch, rng, (lde,), dev)[:, :lde].contiguous()
     big_b = random_limbs(torch, rng, (lde,), dev)[:, :lde].contiguous()
-    one = {}
-    one["mont_mul"] = {
-        "shape": shape_text(big_a, big_b),
-        "ms": cuda_ms(torch, lambda: cf.mont_mul(big_a, big_b), 20),
-        "plain_ms": cuda_ms(torch, lambda: cf.mul_plain(big_a, big_b), 3),
-        # two operands read, one result written; one product per element
-        **bound(3 * ELEM_BYTES * lde, OPS_MUL * lde),
-    }
-    one["add_sub_mod"] = {
-        "shape": shape_text(big_a, big_b),
-        "ms": cuda_ms(torch, lambda: cf.add_sub_mod(big_a, big_b, "sub"), 20),
-        "plain_ms": cuda_ms(torch, lambda: cf.sub_plain(big_a, big_b), 3),
-        **bound(3 * ELEM_BYTES * lde, OPS_ADD * lde),
-    }
+    pa, pb = cf.pack_words(big_a), cf.pack_words(big_b)
+    one, limb_recs = {}, {"mont_mul": {}, "add_sub_mod": {}}
+    for x, y, elem, recs in ((pa, pb, PACKED_BYTES, one),
+                             (big_a, big_b, ELEM_BYTES, None)):
+        # two operands read, one result written (the operands' layout); one
+        # product or difference per element
+        for name, launch, plain, ops in (
+                ("mont_mul", lambda: cf.mont_mul(x, y),
+                 lambda: cf.mul_plain(x, y), OPS_MUL),
+                ("add_sub_mod", lambda: cf.add_sub_mod(x, y, "sub"),
+                 lambda: cf.sub_plain(x, y), OPS_ADD)):
+            rec = {"shape": shape_text(x, y), "ms": graph_ms(torch, launch, 20),
+                   "plain_ms": cuda_ms(torch, plain, 3),
+                   **bound(3 * elem * lde, ops * lde)}
+            if recs is None:
+                limb_recs[name]["one_column"] = rec
+            else:
+                recs[name] = rec
+    del pa, pb
 
     # H3 / H4 at one 2^21-point column
     x = big_a.reshape(16, 1, lde)
@@ -619,37 +674,50 @@ def phase_kernels(torch, dev) -> dict:
              (flags, wide[:, CAIRO_FLAG_COLS:2 * CAIRO_FLAG_COLS]),
              (chunk, consts[:, :_COL_CHUNK]), (chunk, row),
              (chunk, wide[:, :_COL_CHUNK]), (row, consts[:, :_COL_CHUNK])]
-    for u, v in pairs:
-        e1 = err_by_columns(torch, cf.mont_mul(u, v), cf.mul_plain, u, v)
-        e2 = max(
-            err_by_columns(torch, cf.add_sub_mod(u, v, "add"), cf.add_plain, u, v),
-            err_by_columns(torch, cf.add_sub_mod(u, v, "sub"), cf.sub_plain, u, v))
-        log(f"[kernels] mont_mul, add_sub_mod vs plain at {shape_text(u, v)}: "
-            f"max_abs_err {e1}, {e2}")
+    # the packed views as DEEP cuts them from the LDE: _COL_CHUNK columns, and
+    # a chunk of 2^20 of their points
+    pwide = cf.pack_words(wide)
+    pairs = [(u, v, pwide[:, _COL_CHUNK:2 * _COL_CHUNK] if u is chunk else None)
+             for u, v in pairs]
+    pairs.append((wide[:, :_COL_CHUNK, 1 << 20:], consts[:, :_COL_CHUNK],
+                  pwide[:, :_COL_CHUNK, 1 << 20:]))
+    for u, v, pu in pairs:
+        es = layout_errs(torch, cf, u, v, pu, by_columns=True)
+        e1, e2 = es["mont_mul"], es["add_sub_mod"]
+        log(f"[kernels] mont_mul, add_sub_mod vs plain at {shape_text(u, v)}, "
+            f"every layout pair and output layout: max_abs_err {e1}, {e2}")
         errs["mont_mul"] = max(errs["mont_mul"], e1)
         errs["add_sub_mod"] = max(errs["add_sub_mod"], e2)
         require(e1 == 0 and e2 == 0, "a field kernel disagrees with its plain "
                 f"version at {shape_text(u, v)}")
+    del pwide, pairs
 
     def plain_by_columns(plain, u, v):
         return [plain(u[:, c:c + 1], v[:, c:c + 1]) for c in range(u.shape[1])]
 
     n_flag = CAIRO_FLAG_COLS * lde
-    out["mont_mul"] = {
-        "shape": shape_text(flags, consts),
-        "ms": cuda_ms(torch, lambda: cf.mont_mul(flags, consts), 10),
-        "plain_ms": cuda_ms(
-            torch, lambda: plain_by_columns(cf.mul_plain, flags, consts), 2),
-        # the stack read and written once, one constant per column read once
-        **bound(ELEM_BYTES * (2 * n_flag + CAIRO_FLAG_COLS), OPS_MUL * n_flag),
-    }
-    out["add_sub_mod"] = {
-        "shape": shape_text(flags, consts),
-        "ms": cuda_ms(torch, lambda: cf.add_sub_mod(flags, consts, "sub"), 10),
-        "plain_ms": cuda_ms(
-            torch, lambda: plain_by_columns(cf.sub_plain, flags, consts), 2),
-        **bound(ELEM_BYTES * (2 * n_flag + CAIRO_FLAG_COLS), OPS_ADD * n_flag),
-    }
+    pflags = cf.pack_words(flags)
+    # the constraints' stack: the packed frame's 15 flag columns against
+    # (16, 15, 1) constants, as round 2 hands them to H1/H2; then the same
+    # in the limb layout
+    for u, elem, recs in ((pflags, PACKED_BYTES, out), (flags, ELEM_BYTES, None)):
+        for name, launch, plain, ops in (
+                ("mont_mul", lambda: cf.mont_mul(u, consts),
+                 lambda: plain_by_columns(cf.mul_plain, u, consts), OPS_MUL),
+                ("add_sub_mod", lambda: cf.add_sub_mod(u, consts, "sub"),
+                 lambda: plain_by_columns(cf.sub_plain, u, consts), OPS_ADD)):
+            # the stack read and written once, one constant per column read
+            # once
+            rec = {"shape": shape_text(u, consts),
+                   "ms": graph_ms(torch, launch, 10),
+                   "plain_ms": cuda_ms(torch, plain, 2),
+                   **bound(elem * 2 * n_flag + ELEM_BYTES * CAIRO_FLAG_COLS,
+                           ops * n_flag)}
+            if recs is None:
+                limb_recs[name]["cairo_stack"] = rec
+            else:
+                recs[name] = rec
+    del pflags
 
     def narrow(xs, cols):
         return xs[:, :cols].contiguous()
@@ -719,7 +787,10 @@ def phase_kernels(torch, dev) -> dict:
         # butterfly, so there is no library time to put beside the kernel's
         rec["library_ms"] = None
         rec["one_column"] = one[name]
-        for r in (rec, rec.get("cairo_fib_stack"), one[name]):
+        if name in limb_recs:
+            rec["limbs"] = limb_recs[name]  # the (16, ...) layout's times
+        for r in (rec, rec.get("cairo_fib_stack"), one[name],
+                  *limb_recs.get(name, {}).values()):
             if r is None:
                 continue
             for label, t in ((name, r), (f"{name}, 10 stages in place",
@@ -1447,6 +1518,42 @@ def fri_routes(torch, dev, tag: str, res: dict, warm: dict) -> None:
         f"{guarded_proof._timings['round4_fri_commit']:.4f} s")
 
 
+# ProverKernels methods in which H1/H2 read the packed LDE, polynomials and
+# tables as they lie: no fd.unpack (or fd.pack) call inside them
+UNPACK_FREE = ("round2", "_deep_evaluations", "eval_at_powers")
+
+
+def counting_unpacks(fn):
+    """(fn(), {method of UNPACK_FREE: (unpack, pack) calls inside it over the
+    run}, (unpack, pack) calls in all)."""
+    from lambdaworks_cairo_prover_tpu_torch.field import device as fd
+    from lambdaworks_cairo_prover_tpu_torch.prover.kernels import ProverKernels
+
+    seen = {name: [0, 0] for name in UNPACK_FREE}
+    saved = {name: getattr(ProverKernels, name) for name in UNPACK_FREE}
+
+    def counted(orig, name):
+        def run(self, *args, **kwargs):
+            u0, p0 = fd.unpack.calls, fd.pack.calls
+            try:
+                return orig(self, *args, **kwargs)
+            finally:
+                seen[name][0] += fd.unpack.calls - u0
+                seen[name][1] += fd.pack.calls - p0
+        return run
+
+    u0, p0 = fd.unpack.calls, fd.pack.calls
+    try:
+        for name, orig in saved.items():
+            setattr(ProverKernels, name, counted(orig, name))
+        out = fn()
+    finally:
+        for name, orig in saved.items():
+            setattr(ProverKernels, name, orig)
+    return out, {k: tuple(v) for k, v in seen.items()}, (
+        fd.unpack.calls - u0, fd.pack.calls - p0)
+
+
 def phase_cairo_full(torch, dev) -> dict:
     from lambdaworks_cairo_prover_tpu_torch.cairo import programs
 
@@ -1460,9 +1567,13 @@ def phase_cairo_full(torch, dev) -> dict:
             f"the cold prove launched H1 {launches['mont_mul']} times, not "
             f"fewer than {CAIRO_FIB_MAX_H1}")
     peak = torch.cuda.max_memory_allocated()
-    warm = _cairo(program, bench=True, dev=dev,
-                  args=(cold["trace"], cold["pub"]))
+    warm, inside, whole = counting_unpacks(lambda: _cairo(
+        program, bench=True, dev=dev, args=(cold["trace"], cold["pub"])))
     require(warm["bytes"] == cold["bytes"], "cold and warm Cairo proofs differ")
+    log(f"[cairo-full] warm prove: fd.unpack / fd.pack calls {whole[0]} / "
+        f"{whole[1]} in all; inside {', '.join(f'{k} {u} / {p}' for k, (u, p) in inside.items())}")
+    require(all(c == (0, 0) for c in inside.values()),
+            "a layout pass runs in round 2, DEEP or the OOD dot products")
     trace, stages = cold["trace"], cold["trace"]._timings
     require((trace.n_rows, cold["columns"]) == (1 << FULL_LOG, 52),
             f"expected 2^{FULL_LOG} rows x 52 columns, got {trace.n_rows} x "

@@ -19,19 +19,17 @@ from __future__ import annotations
 
 import torch
 
-from ..field import device as fd
-from ..field.params import N_LIMBS
 from .values import FV, HostCtx, TorchCtx
 
 
 class _WindowRow:
-    """Row at ``shift`` of a window: column c is the (16, length) view of
+    """Row at ``shift`` of a window: column c is the (rows, length) view of
     the window's points [shift, shift + length)."""
 
     def __init__(self, ctx: TorchCtx, data: torch.Tensor, shift: int,
                  length: int):
         self._ctx = ctx
-        self._data = data  # (16, n_cols, length + halo)
+        self._data = data  # (16 or 8, n_cols, length + halo)
         self._shift = shift
         self._length = length
 
@@ -40,31 +38,20 @@ class _WindowRow:
             self._data[:, col, self._shift:self._shift + self._length])
 
 
-def _window(block: torch.Tensor, halo: torch.Tensor) -> torch.Tensor:
-    """block ‖ halo along the points as one (16, cols, L + h) limb tensor,
-    unpacked from either layout into one buffer."""
-    cols, length, h = block.shape[1], block.shape[2], halo.shape[2]
-    out = torch.empty((N_LIMBS, cols, length + h), dtype=torch.int32,
-                      device=block.device)
-    for part, dst in ((block, out[:, :, :length]), (halo, out[:, :, length:])):
-        if fd.is_packed(part):
-            fd.unpack(part, out=dst)
-        else:
-            dst.copy_(part)
-    return out
-
-
 class HaloFrame:
     """The transition frame over ``block`` (16 or 8, cols, L) and the
     ``halo`` (the same layout, at least max(offsets) * blowup points) that
-    follows it: one unpacked copy of block ‖ halo, each row a view of it."""
+    follows it: one copy of block ‖ halo in their layout, each row a view
+    of it.  A packed frame is read by H1/H2 as it lies, and the constraints
+    over it come out packed."""
 
     def __init__(self, block: torch.Tensor, halo: torch.Tensor,
                  offsets: list[int], blowup: int):
         length = block.shape[2]
         self.ctx = TorchCtx(batch_shape=(length,), device=block.device)
-        # (16, cols, L + h) limbs: row 0 of every column is data[:, c, :L]
-        self.data = data = _window(block, halo[:, :, :max(offsets) * blowup])
+        # row 0 of every column is data[:, c, :L]
+        self.data = data = torch.cat(
+            [block, halo[:, :, :max(offsets) * blowup]], dim=2)
         self._rows = {k: _WindowRow(self.ctx, data, k * blowup, length)
                       for k in set(offsets)}
 

@@ -55,10 +55,10 @@ class TraceTable:
         Compact ingest, as in the JAX package: a column whose values all fit
         64 bits (registers, addresses, offsets, flags, instructions) goes to
         the device as one 64-bit word per value, a full-width felt column as
-        four.  The 16-limb expansion, the Montgomery conversion
-        (``fd.to_mont``, the H1 kernel on a CUDA device) and the packing run
-        on ``device``, ``_INGEST_COLS`` columns at a time, each written into
-        the packed trace in place."""
+        four.  The 16-limb expansion and the Montgomery conversion
+        (``fd.to_mont``, the H1 kernel on a CUDA device, which writes packed
+        words) run on ``device``, ``_INGEST_COLS`` columns at a time, each
+        copied into the packed trace."""
         n_rows = len(cols[0])
         small_idx, small_arrs, felt_idx, felt_arrs = [], [], [], []
         for c, col in enumerate(cols):
@@ -86,7 +86,7 @@ class TraceTable:
                         (N_LIMBS - n_limbs,) + raw.shape[1:])])
                 dst = torch.tensor(idx[c0:c0 + _INGEST_COLS],
                                    dtype=torch.int64, device=device)
-                out.index_copy_(1, dst, fd.pack(fd.to_mont(raw)))
+                out.index_copy_(1, dst, fd.to_mont(raw, packed=True))
         return cls(out)
 
     @classmethod

@@ -1,9 +1,17 @@
 // Stark252 field arithmetic for the port's CUDA kernels.
 //
 // p = 2^251 + 17*2^192 + 1.  Elements are in Montgomery form (R = 2^256) and
-// canonical (< p).  In memory an operand is the JAX package's layout: 16
-// little-endian 16-bit limbs on the leading axis, one int32 word per limb
-// (values < 2^16), so limb k of element e sits at base[k * limb_stride + e].
+// canonical (< p).  In memory an operand is in one of the JAX package's two
+// layouts, both on the leading axis:
+//   limbs  (16, ...): 16 little-endian 16-bit limbs, one int32 word per limb
+//          (values < 2^16), limb k of element e at base[k * limb_stride + e]
+//          (load_elem / store_elem);
+//   packed (8, ...): 8 little-endian 32-bit words, limb 2k in the low half of
+//          word k and limb 2k+1 in the high half (the uint32 bit pattern in
+//          an int32), word k of element e at base[k * word_stride + e]
+//          (load_packed / store_packed), half the bytes.
+// The *4 helpers move four consecutive elements, each row of the layout one
+// 16-byte access (idx and the stride multiples of 4, base 16-byte aligned).
 // In registers an element is 8 little-endian 32-bit words.
 //
 // In 32-bit words p = [1, 0, 0, 0, 0, 0, 17, 2^27], and p = 1 (mod 2^32), so
@@ -30,6 +38,65 @@ __device__ __forceinline__ void store_elem(int32_t* base, long long limb_stride,
   for (int k = 0; k < 8; ++k) {
     base[(2 * k) * limb_stride + idx] = (int32_t)(w[k] & 0xFFFFu);
     base[(2 * k + 1) * limb_stride + idx] = (int32_t)(w[k] >> 16);
+  }
+}
+
+__device__ __forceinline__ void load_packed(const int32_t* base, long long word_stride,
+                                            long long idx, uint32_t w[8]) {
+#pragma unroll
+  for (int k = 0; k < 8; ++k) w[k] = (uint32_t)base[k * word_stride + idx];
+}
+
+__device__ __forceinline__ void store_packed(int32_t* base, long long word_stride,
+                                             long long idx, const uint32_t w[8]) {
+#pragma unroll
+  for (int k = 0; k < 8; ++k) base[k * word_stride + idx] = (int32_t)w[k];
+}
+
+__device__ __forceinline__ void load_elem4(const int32_t* base, long long limb_stride,
+                                           long long idx, uint32_t w[4][8]) {
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const int4 lo = *reinterpret_cast<const int4*>(base + (2 * k) * limb_stride + idx);
+    const int4 hi = *reinterpret_cast<const int4*>(base + (2 * k + 1) * limb_stride + idx);
+    w[0][k] = ((uint32_t)lo.x & 0xFFFFu) | ((uint32_t)hi.x << 16);
+    w[1][k] = ((uint32_t)lo.y & 0xFFFFu) | ((uint32_t)hi.y << 16);
+    w[2][k] = ((uint32_t)lo.z & 0xFFFFu) | ((uint32_t)hi.z << 16);
+    w[3][k] = ((uint32_t)lo.w & 0xFFFFu) | ((uint32_t)hi.w << 16);
+  }
+}
+
+__device__ __forceinline__ void store_elem4(int32_t* base, long long limb_stride,
+                                            long long idx, const uint32_t w[4][8]) {
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    *reinterpret_cast<int4*>(base + (2 * k) * limb_stride + idx) =
+        make_int4((int)(w[0][k] & 0xFFFFu), (int)(w[1][k] & 0xFFFFu),
+                  (int)(w[2][k] & 0xFFFFu), (int)(w[3][k] & 0xFFFFu));
+    *reinterpret_cast<int4*>(base + (2 * k + 1) * limb_stride + idx) =
+        make_int4((int)(w[0][k] >> 16), (int)(w[1][k] >> 16), (int)(w[2][k] >> 16),
+                  (int)(w[3][k] >> 16));
+  }
+}
+
+__device__ __forceinline__ void load_packed4(const int32_t* base, long long word_stride,
+                                             long long idx, uint32_t w[4][8]) {
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const int4 v = *reinterpret_cast<const int4*>(base + k * word_stride + idx);
+    w[0][k] = (uint32_t)v.x;
+    w[1][k] = (uint32_t)v.y;
+    w[2][k] = (uint32_t)v.z;
+    w[3][k] = (uint32_t)v.w;
+  }
+}
+
+__device__ __forceinline__ void store_packed4(int32_t* base, long long word_stride,
+                                              long long idx, const uint32_t w[4][8]) {
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    *reinterpret_cast<int4*>(base + k * word_stride + idx) =
+        make_int4((int)w[0][k], (int)w[1][k], (int)w[2][k], (int)w[3][k]);
   }
 }
 

@@ -36,9 +36,11 @@ _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _I = ctypes.c_int
 _U64 = ctypes.c_ulonglong
+# an H1/H2 operand: pointer, row stride, div, mod, run, run stride, packed
+_OPERAND = [_P, _LL, _LL, _LL, _LL, _LL, _I]
 _SIGNATURES = {
-    "lcp_mont_mul": [_P, _LL, _LL, _LL, _P, _LL, _LL, _LL, _P, _LL, _P],
-    "lcp_add_sub": [_I, _P, _LL, _LL, _LL, _P, _LL, _LL, _LL, _P, _LL, _P],
+    "lcp_mont_mul": _OPERAND * 2 + [_P, _I, _LL, _P],
+    "lcp_add_sub": [_I] + _OPERAND * 2 + [_P, _I, _LL, _P],
     "lcp_ntt_dif_stages": [_P, _P, _LL, _I, _I, _I, _P, _P],
     "lcp_ntt_dif_local": [_P, _P, _LL, _I, _I, _I, _P, _P],
     "lcp_keccak_rows": [_P, _LL, _LL, _LL, _I, _LL, _P, _P],

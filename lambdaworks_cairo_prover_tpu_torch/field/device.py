@@ -1,10 +1,21 @@
-"""Prime-field arithmetic over 16x16-bit limb tensors (PyTorch): Stark252,
+"""Prime-field arithmetic over limb or packed tensors (PyTorch): Stark252,
 or the toy field that ``LCP_FIELD`` selects.
 
-Every function takes int32 tensors whose LEADING axis is the limb axis
-(shape ``(16, ...)``, little-endian 16-bit limbs, values < 2^16) — the JAX
-package's layout, so arrays pass between the two packages unchanged.
-Elements are in Montgomery form (R = 2^256) and canonical (< p) unless noted.
+Every function takes int32 tensors whose LEADING axis holds an element, in
+either layout of the JAX package (field/device.py), so arrays pass between
+the two packages unchanged:
+
+* limbs ``(16, ...)``: little-endian 16-bit limbs, values < 2^16;
+* packed ``(8, ...)``: two limbs a 32-bit word (:func:`pack`), the at-rest
+  layout of the resident trace, LDE and domain tables; half the bytes.
+
+Elements are in Montgomery form (R = 2^256) and canonical (< p) unless
+noted.  ``mul``, ``add``, ``sub`` (and ``neg``, ``square``, ``from_mont``,
+``to_mont``) take operands in either layout and ``packed``, the result's:
+True, False, or None for packed where any operand is packed.  A caller
+whose consumer reads only limbs (the NTT, the scans, Keccak) asks for
+``packed=False`` from the product or sum that makes its input, so no pass
+unpacks between them; :func:`pack` and :func:`unpack` count their calls.
 
 Dispatch rule: under the Stark252 prime a CUDA tensor goes to the
 hand-written kernels of ``cuda_field`` (mul -> H1, add/sub/neg -> H2) and
@@ -24,7 +35,7 @@ import torch
 
 from . import cuda_field as cf
 from . import cuda_scan as cs
-from .params import LIMB_MASK, N_LIMBS, P, R, R2, SPARSE_P
+from .params import N_LIMBS, P, R, R2, SPARSE_P
 
 _I32 = torch.int32
 
@@ -45,10 +56,16 @@ def from_ints(values, mont: bool = True, *, device) -> torch.Tensor:
 
 
 def to_ints(limbs, mont: bool = True) -> list:
-    """(16, ...) limbs -> flat list of python ints (out of Montgomery form)."""
+    """(16, ...) limbs or (8, ...) packed words -> flat list of python ints
+    (out of Montgomery form)."""
     if isinstance(limbs, torch.Tensor):
         limbs = limbs.detach().cpu().numpy()
-    arr = np.asarray(limbs).astype(np.uint16).reshape(N_LIMBS, -1).T.copy()
+    arr = np.asarray(limbs)
+    if arr.shape[0] == N_LIMBS // 2:  # words: the uint32 bit patterns
+        arr = (arr.astype(np.int64) & 0xFFFFFFFF).astype("<u4")
+    else:
+        arr = arr.astype(np.uint16)
+    arr = arr.reshape(arr.shape[0], -1).T.copy()
     out = []
     r_inv = pow(R, P - 2, P)
     for row in arr:
@@ -92,39 +109,44 @@ def ones(shape=(), *, device) -> torch.Tensor:
 # Packed layout: two 16-bit limbs a 32-bit word (the JAX package's at-rest
 # layout, field/device.py:pack), half the bytes of the limb layout.  Words
 # are int32 carrying the uint32 bit pattern (a word whose top bit is set is
-# negative), as the NTT kernels' twiddle table reads them: CPU torch has no
-# uint32 arithmetic, and int32 shifts and masks act on the bits as on uint32
-# where the mask follows an arithmetic shift.
+# negative), as the kernels read them: CPU torch has no uint32 arithmetic,
+# and int32 shifts and masks act on the bits as on uint32 where the mask
+# follows an arithmetic shift.  Each conversion is a pass over the tensor:
+# ``pack.calls`` and ``unpack.calls`` count them.
 # ---------------------------------------------------------------------------
 
 
 def pack(a: torch.Tensor) -> torch.Tensor:
     """(16, ...) 16-bit limbs -> (8, ...) int32 words, limb 2k | limb 2k+1 << 16."""
-    # sign-extend the high limb to int32 first, so that the shift by 16
-    # cannot leave the int32 range
-    words = a[1::2].to(_I32) ^ 0x8000
-    return words.sub_(0x8000).mul_(0x10000).bitwise_or_(a[0::2].to(_I32))
+    pack.calls += 1
+    return cf.pack_words(a)
+
+
+pack.calls = 0
 
 
 def unpack(p: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
     """(8, ...) packed words (int32 bit patterns, or int64 words < 2^32) ->
     (16, ...) int32 16-bit limbs, written into ``out`` where given."""
-    if out is None:
-        out = torch.empty((N_LIMBS,) + tuple(p.shape[1:]), dtype=_I32,
-                          device=p.device)
-    out[0::2] = p & LIMB_MASK
-    out[1::2] = (p >> 16) & LIMB_MASK  # mask after the arithmetic shift
-    return out
+    unpack.calls += 1
+    return cf.unpack_words(p, out)
 
 
-def is_packed(a: torch.Tensor) -> bool:
-    """Whether ``a`` holds packed words (8, ...) rather than limbs (16, ...)."""
-    return a.shape[0] == N_LIMBS // 2
+unpack.calls = 0
+
+is_packed = cf.is_packed
 
 
 def unpacked(a: torch.Tensor) -> torch.Tensor:
     """``a`` as (16, ...) limbs, whichever layout it is in."""
     return unpack(a) if is_packed(a) else a
+
+
+def _same_layout(a: torch.Tensor, b: torch.Tensor):
+    """``a`` and ``b`` in one layout: the packed one's, where they differ."""
+    if is_packed(a) == is_packed(b):
+        return a, b
+    return (a, pack(b)) if is_packed(a) else (pack(a), b)
 
 
 # ---------------------------------------------------------------------------
@@ -136,52 +158,63 @@ def _plain(a: torch.Tensor, b: torch.Tensor) -> bool:
     return not SPARSE_P or (a.device.type == "cpu" and b.device.type == "cpu")
 
 
-def add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Modular addition of canonical limb tensors."""
-    return cf.add_plain(a, b) if _plain(a, b) else cf.add_sub_mod(a, b, "add")
+def add(a: torch.Tensor, b: torch.Tensor,
+        packed: bool | None = None) -> torch.Tensor:
+    """Modular addition of canonical tensors."""
+    if _plain(a, b):
+        return cf.add_plain(a, b, packed)
+    return cf.add_sub_mod(a, b, "add", packed)
 
 
-def sub(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def sub(a: torch.Tensor, b: torch.Tensor,
+        packed: bool | None = None) -> torch.Tensor:
     """Modular subtraction a - b."""
-    return cf.sub_plain(a, b) if _plain(a, b) else cf.add_sub_mod(a, b, "sub")
+    if _plain(a, b):
+        return cf.sub_plain(a, b, packed)
+    return cf.add_sub_mod(a, b, "sub", packed)
 
 
-def neg(a: torch.Tensor) -> torch.Tensor:
-    return sub(zeros((1,) * (a.dim() - 1), device=a.device), a)
+def neg(a: torch.Tensor, packed: bool | None = None) -> torch.Tensor:
+    return sub(zeros((1,) * (a.dim() - 1), device=a.device), a, packed)
 
 
-def mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def mul(a: torch.Tensor, b: torch.Tensor,
+        packed: bool | None = None) -> torch.Tensor:
     """Montgomery product REDC(a*b); canonical output."""
-    return cf.mul_plain(a, b) if _plain(a, b) else cf.mont_mul(a, b)
+    return (cf.mul_plain(a, b, packed) if _plain(a, b)
+            else cf.mont_mul(a, b, packed))
 
 
-def square(a: torch.Tensor) -> torch.Tensor:
-    return mul(a, a)
+def square(a: torch.Tensor, packed: bool | None = None) -> torch.Tensor:
+    return mul(a, a, packed)
 
 
-def from_mont(a: torch.Tensor) -> torch.Tensor:
-    """Montgomery form -> canonical residue limbs (REDC with 1)."""
+def from_mont(a: torch.Tensor, packed: bool | None = None) -> torch.Tensor:
+    """Montgomery form -> canonical residues (REDC with 1)."""
     one = constant(1, mont=False, device=a.device)
-    return mul(a, one.reshape((N_LIMBS,) + (1,) * (a.dim() - 1)))
+    return mul(a, one.reshape((N_LIMBS,) + (1,) * (a.dim() - 1)), packed)
 
 
-def to_mont(a: torch.Tensor) -> torch.Tensor:
-    """Canonical residue limbs -> Montgomery form (multiply by R^2)."""
+def to_mont(a: torch.Tensor, packed: bool | None = None) -> torch.Tensor:
+    """Canonical residues -> Montgomery form (multiply by R^2)."""
     r2 = constant(R2, mont=False, device=a.device)
-    return mul(a, r2.reshape((N_LIMBS,) + (1,) * (a.dim() - 1)))
+    return mul(a, r2.reshape((N_LIMBS,) + (1,) * (a.dim() - 1)), packed)
 
 
 def is_zero(a: torch.Tensor) -> torch.Tensor:
-    """Boolean mask over the batch shape: element == 0."""
+    """Boolean mask over the batch shape: element == 0 (either layout)."""
     return (a == 0).all(dim=0)
 
 
 def eq(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    a, b = _same_layout(a, b)
     return (a == b).all(dim=0)
 
 
 def select(mask: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Elementwise where over the batch shape (mask broadcast against limbs)."""
+    """Elementwise where over the batch shape (mask broadcast against the
+    leading axis); the packed layout where a and b differ."""
+    a, b = _same_layout(a, b)
     return torch.where(mask.unsqueeze(0), a, b)
 
 
@@ -210,10 +243,17 @@ def inv(a: torch.Tensor) -> torch.Tensor:
     return cs.fermat(a, mul)
 
 
+def _limbs_only(x: torch.Tensor, what: str) -> None:
+    if is_packed(x):
+        raise ValueError(f"{what} takes (16, n) limbs: ask the product or "
+                         "sum that makes its input for packed=False")
+
+
 def batch_inverse(x: torch.Tensor) -> torch.Tensor:
     """Montgomery-trick batch inversion along axis 1 of ``x`` (16, n);
     zeros map to zero (lambdaworks `inplace_batch_inverse`): H5 on a CUDA
     tensor, the chunked plain scan otherwise."""
+    _limbs_only(x, "batch_inverse")
     if _plain(x, x):
         return cs.batch_inverse_plain(x)
     return cs.mont_batch_inverse(x.contiguous())
@@ -222,6 +262,7 @@ def batch_inverse(x: torch.Tensor) -> torch.Tensor:
 def prefix_product(x: torch.Tensor) -> torch.Tensor:
     """Inclusive prefix product along axis 1 of ``x`` (16, n): H6 on a CUDA
     tensor, the chunked plain scan otherwise."""
+    _limbs_only(x, "prefix_product")
     if _plain(x, x):
         return cs.prefix_product_plain(x)
     return cs.mont_prefix_product(x.contiguous())

@@ -245,9 +245,9 @@ class ShardedProverKernels(ProverKernels):
         all-gathered and added on every rank (canonical residues, so the
         order of the additions does not matter)."""
         part = self._dot(coeffs, powers_table)
-        parts = sh.gather_stack(part, self.mesh)  # (D, 16, ...)
+        parts = sh.gather_stack(part, self.mesh)  # (D, 16 or 8, ...)
         return fd.from_mont(nttc.sum_reduce(torch.movedim(parts, 0, 1),
-                                            axis=1))
+                                            axis=1), packed=False)
 
     # -- round 4 ------------------------------------------------------------
 

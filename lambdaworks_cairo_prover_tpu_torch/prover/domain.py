@@ -29,25 +29,27 @@ class Domain:
 
     # -- device tensors -----------------------------------------------------
 
-    def lde_values(self, *, device) -> torch.Tensor:
-        """(16, N) Montgomery limbs of h * w^i over the LDE coset."""
-        key = ("lde_values", torch.device(device))
+    def lde_values(self, *, device, packed: bool = False) -> torch.Tensor:
+        """Montgomery h * w^i over the LDE coset: (16, N) limbs, or (8, N)
+        packed words written so by the product that makes them."""
+        key = ("lde_values", packed, torch.device(device))
         if key not in self._cache:
             pw = nttc.offset_powers(self.lde_primitive_root, self.lde_size,
                                     device)
             self._cache[key] = fd.mul(pw, fd.from_int(self.coset_offset,
-                                                      device=device))
+                                                      device=device), packed)
         return self._cache[key]
 
-    def lde_pow(self, exponent: int, *, device) -> torch.Tensor:
-        """(16, N) limbs of d_i^exponent for d_i in the LDE coset:
-        h^e * (w^e)^i, one powers table and a scalar scale."""
-        key = ("lde_pow", exponent, torch.device(device))
+    def lde_pow(self, exponent: int, *, device,
+                packed: bool = False) -> torch.Tensor:
+        """d_i^exponent for d_i in the LDE coset: h^e * (w^e)^i, one powers
+        table and a scalar scale; (16, N) limbs or (8, N) packed words."""
+        key = ("lde_pow", exponent, packed, torch.device(device))
         if key not in self._cache:
             pw = fd.powers(pow(self.lde_primitive_root, exponent, P),
                            self.lde_size, device=device)
             self._cache[key] = fd.mul(pw, fd.from_int(
-                pow(self.coset_offset, exponent, P), device=device))
+                pow(self.coset_offset, exponent, P), device=device), packed)
         return self._cache[key]
 
     def forget(self, *, device) -> None:

@@ -10,13 +10,16 @@ eager methods, with its device-memory layout.
   twice.
 * The domain tables (LDE coset values, degree-adjustment powers, zerofier
   cycle, exemption evaluations, boundary zerofier inverses) are built once
-  on the device and kept packed where ``packed_tables``.
-* Every pass over the LDE walks it in chunks and unpacks only the chunk it
-  reads: the row leaves in chunks of rows, round 2's constraints and DEEP
-  in chunks of domain points (each chunk of round 2 with the frame's halo,
-  the points after it, round the domain at its end), the OOD dot products
-  in chunks of coefficients.  The chunk sizes set the transient memory and
-  the launch count, never the values.
+  on the device and kept packed where ``packed_tables``: the products that
+  make them write packed words.
+* Every pass over the LDE walks it in chunks: the row leaves in chunks of
+  rows, round 2's constraints and DEEP in chunks of domain points (each
+  chunk of round 2 with the frame's halo, the points after it, round the
+  domain at its end), the OOD dot products in chunks of coefficients.  H1
+  and H2 read the packed LDE, polynomials and tables as they lie; a result
+  that the NTT, the scans or Keccak read comes out of its last product or
+  sum as limbs (``packed=False``).  The chunk sizes set the transient
+  memory and the launch count, never the values.
 """
 
 from __future__ import annotations
@@ -34,8 +37,8 @@ from ..ntt import core as nttc
 from ..ntt import cuda_ntt as cn
 
 
-# Chunk sizes, by the bytes of the unpacked transients that a chunk makes
-# (64 B a field element); values do not depend on them.
+# Chunk sizes, by the bytes of the transients that a chunk makes (32 B a
+# field element packed, 64 B as limbs); values do not depend on them.
 _COL_CHUNK = 8         # columns (or constraints) stacked into one temporary
 _LDE_CHUNK = 1 << 26   # columns x LDE points a round-1 transform chunk
                        # (LCP_COL_CHUNK: columns a chunk)
@@ -55,9 +58,9 @@ class ProverKernels:
 
     # fri_commit_chain: prove() may derive the FRI zetas on the device
     supports_fri_chain = True
-    # the (16, N) domain tables are kept packed and unpacked a chunk at a
-    # time where they are read; the sharded kernels keep theirs unpacked
-    # (a rank's share is already N/D points)
+    # the domain tables are kept as (8, N) packed words, which H1/H2 read in
+    # place; the sharded kernels keep theirs as limbs (a rank's share is
+    # already N/D points)
     packed_tables = True
 
     def __init__(self, air, domain, device):
@@ -90,7 +93,8 @@ class ProverKernels:
         wb = pow(w, n, P)
         zf = fd.from_ints([pow((hn * pow(wb, j, P) - 1) % P, P - 2, P)
                            for j in range(blowup)], device=dev)
-        t["zerofier_inv"] = self._tile(zf)
+        t["zerofier_inv"] = self._tile(fd.pack(zf) if self.packed_tables
+                                       else zf)
         n_points = t["lde_values"].shape[1]
         for count in air.transition_exemption_counts():
             prod = None
@@ -99,35 +103,40 @@ class ProverKernels:
                 prod = f if prod is None else fd.mul(prod, f)
             t[f"exemption_{count}"] = prod
         if self.distinct_steps:
+            # H5 reads and writes limbs
             diffs = [fd.sub(t["lde_values"],
-                            fd.from_int(domain.trace_root_pow(s), device=dev))
+                            fd.from_int(domain.trace_root_pow(s), device=dev),
+                            packed=False)
                      for s in self.distinct_steps]
             inv_big = fd.batch_inverse(torch.cat(diffs, dim=1))
             del diffs
+            if self.packed_tables:
+                inv_big = fd.pack(inv_big)
             for i, s in enumerate(self.distinct_steps):
                 t[f"bz_inv_{s}"] = inv_big[:, i * n_points:(i + 1) * n_points]
             del inv_big
-        if self.packed_tables:
-            t = {k: fd.pack(v) for k, v in t.items()}
         self.tables = t
-        # the domain's (16, N) tables were build inputs: let them go
+        # the domain's tables were build inputs: let them go
         domain.forget(device=dev)
 
     def _lde_values(self) -> torch.Tensor:
-        """(16, N) Montgomery limbs of the LDE coset points h·w^i."""
-        return self.domain.lde_values(device=self.device)
+        """The LDE coset points h·w^i, (8, N) packed where packed_tables."""
+        return self.domain.lde_values(device=self.device,
+                                      packed=self.packed_tables)
 
     def _lde_pow(self, exponent: int) -> torch.Tensor:
-        """(16, N) limbs of d_i^exponent over the LDE coset."""
-        return self.domain.lde_pow(exponent, device=self.device)
+        """d_i^exponent over the LDE coset, (8, N) packed where
+        packed_tables."""
+        return self.domain.lde_pow(exponent, device=self.device,
+                                   packed=self.packed_tables)
 
     def _tile(self, row: torch.Tensor) -> torch.Tensor:
-        """(16, k) -> (16, N): entry i is row[i mod k] (k divides N)."""
+        """(rows, k) -> (rows, N): entry i is row[i mod k] (k divides N)."""
         return row.repeat(1, self.domain.lde_size // row.shape[1])
 
     def _table(self, name: str, start: int, stop: int) -> torch.Tensor:
-        """Points [start, stop) of a domain table as (16, ...) limbs."""
-        return fd.unpacked(self.tables[name][:, start:stop])
+        """Points [start, stop) of a domain table, a view in its layout."""
+        return self.tables[name][:, start:stop]
 
     def _probe_challenges(self):
         """Dummy rap challenges for structural inspection (boundary layout)."""
@@ -198,15 +207,16 @@ class ProverKernels:
 
     def _row_leaves(self, cols: torch.Tensor) -> torch.Tensor:
         """Keccak row leaves (points, 4) of LDE columns (16 or 8, c, points),
-        unpacked, out of Montgomery form and transposed a chunk of rows at a
-        time."""
+        out of Montgomery form into limbs (K1 reads limbs) and transposed a
+        chunk of rows at a time."""
         n_cols, n_points = cols.shape[1], cols.shape[2]
-        step = (_env_chunk("LCP_LEAF_CHUNK")
-                or max(1, _LEAF_CHUNK // max(n_cols, 1)))
+        step = _env_chunk("LCP_LEAF_CHUNK")
+        if not step:  # a multiple of 4 rows: H1 reads each word row 16 B wide
+            step = max(4, _LEAF_CHUNK // max(n_cols, 1) // 4 * 4)
         leaves = torch.empty((n_points, 4), dtype=torch.int64,
                              device=cols.device)
         for r0 in range(0, n_points, step):
-            rows = fd.from_mont(fd.unpacked(cols[:, :, r0:r0 + step]))
+            rows = fd.from_mont(cols[:, :, r0:r0 + step], packed=False)
             leaves[r0:r0 + step] = kd.hash_felt_rows(rows.permute(0, 2, 1),
                                                      n_cols)
         return leaves
@@ -248,7 +258,8 @@ class ProverKernels:
     def _constraint_sum(self, lde_evals, boundary_ab, transition_ab,
                         boundary_values, rap_arrays) -> torch.Tensor:
         """The constraint composition at this device's LDE points, computed
-        _EVAL_CHUNK points at a time into one (16, points) accumulator."""
+        _EVAL_CHUNK points at a time into one (16, points) accumulator (H3
+        and H4 read limbs)."""
         ctxc = self.air.context
         offsets = ctxc.transition_offsets
         blowup = self.domain.blowup_factor
@@ -278,9 +289,12 @@ class ProverKernels:
 
     def _chunk_sum(self, frame, a, b, step_groups, group_list, boundary_ab,
                    transition_ab, boundary_values, rap_arrays) -> torch.Tensor:
-        """The composition at points [a, b) of this device's LDE."""
+        """The composition at points [a, b) of this device's LDE, (16,
+        points) limbs: the frame's and the tables' layout up to each term's
+        last product, which writes limbs."""
         air = self.air
         n_points = b - a
+        rows = frame.data.shape[0]
         acc = None
 
         def accumulate(term):
@@ -298,7 +312,8 @@ class ProverKernels:
                        boundary_ab[0].index_select(1, ix)[:, :, None]),
                 boundary_ab[1].index_select(1, ix)[:, :, None])
             summed = nttc.sum_reduce(fd.mul(nums, coeff), axis=1)
-            accumulate(fd.mul(summed, self._table(f"bz_inv_{step}", a, b)))
+            accumulate(fd.mul(summed, self._table(f"bz_inv_{step}", a, b),
+                              packed=False))
         del d_adj
 
         rap_fv = air.wrap_rap_challenges(frame.ctx, rap_arrays)
@@ -311,7 +326,7 @@ class ProverKernels:
                 part = idxs[j:j + _COL_CHUNK]
                 ix = torch.tensor(part, dtype=torch.int64, device=self.device)
                 evs = torch.stack(
-                    [evals[i].v.expand(N_LIMBS, n_points) for i in part], dim=1)
+                    [evals[i].v.expand(rows, n_points) for i in part], dim=1)
                 for i in part:
                     evals[i] = None  # stacked: let the evaluation go
                 coeff = fd.add(
@@ -320,11 +335,10 @@ class ProverKernels:
                     transition_ab[1].index_select(1, ix)[:, :, None])
                 s = nttc.sum_reduce(fd.mul(evs, coeff), axis=1)
                 summed = s if summed is None else fd.add(summed, s)
-            summed = fd.mul(summed, zerofier)
             if exemption > 0:
                 summed = fd.mul(summed,
                                 self._table(f"exemption_{exemption}", a, b))
-            accumulate(summed)
+            accumulate(fd.mul(summed, zerofier, packed=False))
         return acc
 
     def round2(self, lde_evals, boundary_ab, transition_ab, boundary_values,
@@ -358,24 +372,24 @@ class ProverKernels:
         return fd.powers(base, n, device=self.device)
 
     def _dot(self, coeffs: torch.Tensor, powers_table: torch.Tensor):
-        """sum_i coeffs[..., i] * powers[i] in Montgomery form, (16, ...):
-        coeffs (16 or 8, ..., L) are unpacked _DOT_CHUNK elements at a time
-        and the partial sums added."""
+        """sum_i coeffs[..., i] * powers[i] in Montgomery form, in the layout
+        of coeffs (16 or 8, ..., L), read _DOT_CHUNK elements at a time and
+        the partial sums added."""
         length = coeffs.shape[-1]
         batch = max(1, coeffs[0, ..., 0].numel())
         step = min(length, 1 << max(0, (_DOT_CHUNK // batch).bit_length() - 1))
         acc = None
         for a in range(0, length, step):
             part = nttc.sum_reduce(
-                fd.mul(fd.unpacked(coeffs[..., a:a + step]),
-                       powers_table[..., a:a + step]), axis=-1)
+                fd.mul(coeffs[..., a:a + step], powers_table[..., a:a + step]),
+                axis=-1)
             acc = part if acc is None else fd.add(acc, part)
         return acc
 
     def eval_at_powers(self, coeffs: torch.Tensor, powers_table: torch.Tensor):
         """sum_i coeffs[..., i] * powers[i], out of Montgomery form:
         (16, ...) canonical residues."""
-        return fd.from_mont(self._dot(coeffs, powers_table))
+        return fd.from_mont(self._dot(coeffs, powers_table), packed=False)
 
     # ------------------------------------------------------------------
     # round 4: DEEP evaluation-form combination + interpolation
@@ -395,12 +409,14 @@ class ProverKernels:
     def _deep_evaluations(self, lde_evals, h1_lde, h2_lde, point_arrs,
                           gamma_arr, gammas_hh, ood_rows) -> torch.Tensor:
         """The DEEP composition's values at this device's LDE points, a chunk
-        of _EVAL_CHUNK points and _COL_CHUNK columns at a time."""
+        of _EVAL_CHUNK points and _COL_CHUNK columns at a time, (16, N)
+        limbs (H3 and H4 read limbs), the LDE read in its layout."""
         n_offsets = len(self.air.context.transition_offsets)
         N = lde_evals.shape[2]
         lv = self._table("lde_values", 0, N)
-        inv_all = fd.batch_inverse(torch.cat(
-            [fd.sub(lv, point_arrs[k]) for k in range(n_offsets + 1)], dim=1))
+        inv_all = fd.batch_inverse(torch.cat(  # H5 reads limbs
+            [fd.sub(lv, point_arrs[k], packed=False)
+             for k in range(n_offsets + 1)], dim=1))
         del lv
         gammas = [gamma_arr[:, ki::n_offsets].contiguous()  # (16, cols)
                   for ki in range(n_offsets)]
@@ -412,7 +428,7 @@ class ProverKernels:
             s = None
             for c0 in range(0, lde_evals.shape[1], _COL_CHUNK):
                 c1 = c0 + _COL_CHUNK
-                cols = fd.unpacked(lde_evals[:, c0:c1, a:b])
+                cols = lde_evals[:, c0:c1, a:b]
                 for ki in range(n_offsets):
                     terms = fd.mul(
                         fd.sub(cols, ood_rows[ki][:, c0:c1, None]),
@@ -425,7 +441,7 @@ class ProverKernels:
                 term = fd.mul(fd.mul(
                     fd.sub(h_lde[:, a:b], ood_rows[n_offsets][:, half:half + 1]),
                     inv_z), gammas_hh[half])
-                s = fd.add(s, term)
+                s = fd.add(s, term, packed=False)
             acc[:, a:b] = s
         return acc
 

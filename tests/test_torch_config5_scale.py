@@ -135,21 +135,22 @@ def _closed_forms(rank: int) -> dict:
     # gather_rows: a root a sharded tree (the trace, the composition, the
     # first FRI layer and one a fold); the halo of the frame's row shifts
     # (offsets up to 2, times the blowup; packed 8 words, 1 column); one
-    # partial OOD sum (16 limbs) a trace offset and a composition half; the
-    # fold whose block is one point (the chain's last: 2 coefficients)
+    # partial OOD sum a trace offset (in the packed polynomials' layout, 8
+    # words) and a composition half (16 limbs); the fold whose block is one
+    # point (the chain's last: 2 coefficients)
     air = tfib.FibonacciAIR(n, tfib.FibonacciPublicInputs(1, 1), options)
     offsets = air.context.transition_offsets
     trees = 3 + (log_n - 1)
     halo = 4 * 8 * 1 * max(offsets) * options.blowup_factor
     folds = [N] + [n >> k for k in range(log_n)]
+    ood = ELEM // 2 * len(offsets) + ELEM * 2
     odd = [ELEM * L // D for L in folds if L % D == 0 and (L // D) % 2]
     return {
         "four_step.ShardedNTT._a2a": (len(a2a) * 3, sum(a2a), sum(a2a)),
         "sharding.reblock": (len(pads) + 1, sent, recv),
         "_commit": (trees, 32 * trees, 32 * D * trees),
         "_halo": (1, halo, D * halo),
-        "eval_at_powers": (len(offsets) + 2, ELEM * (len(offsets) + 2),
-                           D * ELEM * (len(offsets) + 2)),
+        "eval_at_powers": (len(offsets) + 2, ood, D * ood),
         "_halves": (len(odd), sum(odd), D * sum(odd)),
     }
 

@@ -142,7 +142,9 @@ def cuda_lib():
 
 
 def field_times(torch, cf, card: str, root: str) -> None:
-    """H1 and H2 at (16, 2^21) x (16, 2^21) and at (16, 15, 2^21) x (16, 15, 1)."""
+    """H1 and H2 at (16, 2^21) x (16, 2^21) and at (16, 15, 2^21) x (16, 15, 1);
+    where the checkout's kernels take packed words, also at (8, 2^21) x
+    (8, 2^21) -> (8, 2^21) and (8, 15, 2^21) x (16, 15, 1) -> (8, 15, 2^21)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(11)
     x = torch.randint(0, 1 << 16, (16, 15, 1 << 21), dtype=torch.int32,
@@ -150,12 +152,23 @@ def field_times(torch, cf, card: str, root: str) -> None:
     x[15] &= 0x7FF
     a, b = x[:, 0].contiguous(), x[:, 1].contiguous()
     consts = x[:, :, 7:8].contiguous()
-    for what, fn in (
-            ("H1 mont_mul, one column", lambda: cf.mont_mul(a, b)),
-            ("H2 add_sub_mod, one column", lambda: cf.add_sub_mod(a, b, "sub")),
-            ("H1 mont_mul, 15-column stack", lambda: cf.mont_mul(x, consts)),
-            ("H2 add_sub_mod, 15-column stack",
-             lambda: cf.add_sub_mod(x, consts, "sub"))):
+    cases = [
+        ("H1 mont_mul, one column", lambda: cf.mont_mul(a, b)),
+        ("H2 add_sub_mod, one column", lambda: cf.add_sub_mod(a, b, "sub")),
+        ("H1 mont_mul, 15-column stack", lambda: cf.mont_mul(x, consts)),
+        ("H2 add_sub_mod, 15-column stack",
+         lambda: cf.add_sub_mod(x, consts, "sub"))]
+    if hasattr(cf, "pack_words"):
+        pa, pb, px = cf.pack_words(a), cf.pack_words(b), cf.pack_words(x)
+        cases += [
+            ("H1 mont_mul, one column, packed", lambda: cf.mont_mul(pa, pb)),
+            ("H2 add_sub_mod, one column, packed",
+             lambda: cf.add_sub_mod(pa, pb, "sub")),
+            ("H1 mont_mul, 15-column stack, packed",
+             lambda: cf.mont_mul(px, consts)),
+            ("H2 add_sub_mod, 15-column stack, packed",
+             lambda: cf.add_sub_mod(px, consts, "sub"))]
+    for what, fn in cases:
         log(f"[field] {what}: {cuda_ms(torch, fn, 20):.4f} ms ({root}; {card})")
 
 

@@ -146,6 +146,7 @@ def main() -> int:
         compare_lesser_array_program)
     from lambdaworks_cairo_prover_tpu_torch.field import cuda_field as cf
     from lambdaworks_cairo_prover_tpu_torch.field import cuda_scan as cs
+    from lambdaworks_cairo_prover_tpu_torch.field import device as fd
     from lambdaworks_cairo_prover_tpu_torch.hash import cuda_keccak as ck
     from lambdaworks_cairo_prover_tpu_torch.ntt import cuda_ntt as cn
     from lambdaworks_cairo_prover_tpu_torch.proof.options import ProofOptions
@@ -205,9 +206,15 @@ def main() -> int:
                 "H5 mont_batch_inverse": cs.mont_batch_inverse,
                 "H6 mont_prefix_product": cs.mont_prefix_product}
 
+    # the layout passes that the prove asks for (counted since the packed
+    # H1/H2; None in a checkout from before)
+    passes = {"fd.unpack": fd.unpack, "fd.pack": fd.pack}
+    counts0 = {}
+
     def run(route):
         for w in wrappers.values():
             w.launches = 0
+        counts0.update({k: getattr(f, "calls", None) for k, f in passes.items()})
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         proof = prove(trace, pub, options, air_class, device=dev,
@@ -250,9 +257,12 @@ def main() -> int:
               f"prove {median([w for w, _ in runs]):.4f} s, median "
               f"round4_fri_commit {median([f for _, f in runs]):.4f} s "
               f"({', '.join(f'{f:.4f}' for _, f in runs)})", flush=True)
+    layout_calls = {k: None if counts0[k] is None else f.calls - counts0[k]
+                    for k, f in passes.items()}
     say(f"[warm] {what}: launches per prove "
-          f"{ {k: w.launches for k, w in wrappers.items()} }, peak device "
-          f"memory {torch.cuda.max_memory_allocated()} bytes", flush=True)
+          f"{ {k: w.launches for k, w in wrappers.items()} }, layout passes "
+          f"{layout_calls}, peak device memory "
+          f"{torch.cuda.max_memory_allocated()} bytes", flush=True)
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         wall, _ = run(first)
@@ -295,6 +305,7 @@ def main() -> int:
                       "proof_sha256": digest, "cold_prove_s": cold,
                       "peak_bytes_per_rank": peaks, "ntt_scaling": scaling,
                       "warm_prove_s": walls, "profiled_prove_s": wall,
+                      "layout_passes": layout_calls,
                       "fri_route": args.fri_route,
                       "round4_fri_commit_s": {
                           r: [f for _, f in runs] for r, runs in by_route.items()},
