@@ -35,6 +35,11 @@ Phases (any failure exits non-zero):
      its first tiles zero and in 100 calls back to back, and against Python
      ints on a sample; timed beside the chunked loop over H1 that they
      replaced;
+     then K4 fri_tail (``[fri-tail]``) at the FRI tails of LDEs of 2^21 and
+     2^23 points (ten layers from 4,096 points), launched under
+     torch.cuda.set_sync_debug_mode("error"), against its plain version on
+     the CPU bit for bit and the host route's last value, at every cluster
+     size, timed beside its bounds and the host route it replaces;
   4. simple_fibonacci proofs against the JAX package's fixtures: 2^10 rows
      with test options (equal bytes) and, where the fixture has a digest,
      its size with the bench options (equal sha256);
@@ -53,11 +58,13 @@ Phases (any failure exits non-zero):
      H1 fewer than 600 times in the cold prove; no fd.unpack or fd.pack
      call inside round 2, DEEP's evaluations or the OOD dot products of the
      warm prove;
-     then both FRI commit routes (``[fri-routes]``): a warm prove whose
-     on-device FRI chain runs under torch.cuda.set_sync_debug_mode("error")
-     (no host sync before its one readback), and a warm prove through the
-     per-layer route (a DefaultTranscript subclass), byte-equal to the
-     others; round4_fri_commit of both routes; its peak memory must stay
+     then the FRI commit routes (``[fri-routes]``): a warm prove whose
+     on-device FRI chain and K4 run under
+     torch.cuda.set_sync_debug_mode("error") (no host sync before its one
+     readback; K4 once, no FRI layer folded on the host), the chain with
+     the host tail (ten layers on the host), the full chain, and the
+     per-layer route (a DefaultTranscript subclass), all byte-equal;
+     round4_fri_commit and the launches of each; its peak memory must stay
      below the unpacked layout's 30.85 GiB;
   9. the memory layout at scale (``[memory]``): Cairo
      fibonacci_program(280000), 2^21 rows x 52 columns (an LDE of 2^23
@@ -75,7 +82,7 @@ Phases (any failure exits non-zero):
      and the slice's real-size run, compare_lesser_array_program(9600) on
      the python VM with hints, alloc and the range-check builtin (2^19 rows
      x 61 columns, bench options), cold and warm, verified; every kernel
-     must be launched; both FRI commit routes as in phase 8;
+     must be launched; the FRI commit routes as in phase 8;
  11. bench.py's rc workload (``BASELINE`` config 3): rc_program with the
      value count that bench.py's calibration loop (copied into
      tools/make_torch_fixtures.py) finds for 2^16 rows, bench options, at
@@ -190,6 +197,11 @@ SCALE_TREE_LOGS = tuple(range(SCALE_LOG, SCALE_BIG_LOG + 3))
 SCALE_LEAF_LOGS = (SCALE_LOG + 2, SCALE_BIG_LOG + 2)
 # DEEP's batch inverse at 2^23 rows: 3 frame offsets and z^2, 2^25 points each
 SCALE_DEEP_N = 4 << (SCALE_BIG_LOG + 2)
+# [fri-tail]: K4 at the FRI tails of the benchmark cells' LDEs (2^21 and 2^23
+# points: both ten layers from 4,096 points, 2,048 coefficients in)
+FRI_TAIL_LDE_LOGS = (LDE_LOG, MEMORY_LOG + 2)
+FRI_TAIL_REPS = 50
+FRI_TAIL_CLUSTERS = (1, 2, 4, 8, 16)  # K4's blocks a cluster, each timed
 
 # The card's peaks (NVIDIA's H100 SXM data sheet): 3.35 TB/s of HBM and 67
 # TFLOP/s of float32 outside the tensor cores, i.e. 33.5e12 FMA instructions
@@ -1245,6 +1257,162 @@ def phase_scan(torch, dev) -> dict:
     return out
 
 
+def fri_tail_layers(lde_log: int) -> list:
+    """(offset, points) of the FRI layers of at most 2^MAX_LOG points of an
+    LDE of 2^lde_log points with the bench options: the layers that
+    prove._fri_commit hands K4."""
+    from lambdaworks_cairo_prover_tpu_torch.field.params import P
+    from lambdaworks_cairo_prover_tpu_torch.prover import fri_tail as ft
+
+    layers, off, ds = [], BENCH["coset_offset"], 1 << lde_log
+    for _ in range(1, lde_log - 2):  # a layer a trace bit, the first apart
+        off, ds = off * off % P, ds // 2
+        if ds <= 1 << ft.MAX_LOG:
+            layers.append((off, ds))
+    return layers
+
+
+def host_fri_tail(coeffs: list, state: bytes, root: bytes, layers) -> int:
+    """The host route that K4 replaces, on a host transcript: a draw after
+    each root, prove._host_fri_layer, the final draw and fold; the last
+    value."""
+    from lambdaworks_cairo_prover_tpu_torch.prover import prove as pv
+    from lambdaworks_cairo_prover_tpu_torch.transcript import (
+        DefaultTranscript, transcript_to_field)
+
+    t = DefaultTranscript()
+    t._buf = bytearray(state)
+    for off, ds in layers:
+        t.append(root)
+        coeffs, _, tree = pv._host_fri_layer(coeffs, transcript_to_field(t),
+                                             off, ds)
+        root = tree.root
+    t.append(root)
+    return pv._host_fold(coeffs, transcript_to_field(t))[0]
+
+
+def fri_tail_work(layers, per_perm: int) -> tuple:
+    """(bytes, 32-bit integer instructions) that K4 needs at the least:
+    the coefficients in; the evaluations, digests, rows and states out; a
+    permutation for each draw, leaf and node; a product and an add for
+    each fold, a product for each scaled coefficient and each leaf out of
+    Montgomery form, and the DIT butterflies (no product by w^0)."""
+    n = len(layers)
+    sizes = [ds for _, ds in layers]
+    n_bytes = (2 << n) * ELEM_BYTES + sum(sizes) * ELEM_BYTES + (
+        sum(2 * ds - 1 for ds in sizes) + 2 * (n + 1)) * 32
+    perms = sum(2 * ds - 1 for ds in sizes) + n + 1
+    ops = perms * per_perm + (n + 1) * OPS_MUL
+    for k, ds in enumerate(sizes):
+        c = 1 << (n - k)
+        ops += c * (2 * OPS_MUL + OPS_ADD) + ds * OPS_MUL
+        log_ds = ds.bit_length() - 1
+        for log_m in range(log_ds):
+            ops += ds // 2 * 2 * OPS_ADD + (ds // 2 - (ds // 2 >> log_m)) * OPS_MUL
+    return n_bytes, ops + OPS_MUL + OPS_ADD  # and the final fold
+
+
+def phase_fri_tail(torch, dev, per_perm: int) -> dict:
+    """K4 ``fri_tail`` (``[fri-tail]``) at the FRI tails of both benchmark
+    cells' LDEs: launched, once its tables are built, under
+    set_sync_debug_mode("error") (no host sync),
+    against its plain version on the CPU bit for bit (roots and last value,
+    states, evaluations, tree levels) and against the host route's last
+    value, at every cluster size; its registers; its time (CUDA events over
+    FRI_TAIL_REPS launches) beside its bounds on the card and on the SMs
+    of its cluster, the plain version's time on the CPU and the host
+    route's."""
+    import numpy as np
+
+    from lambdaworks_cairo_prover_tpu_torch import cuda_lib
+    from lambdaworks_cairo_prover_tpu_torch.field import device as fd
+    from lambdaworks_cairo_prover_tpu_torch.hash import keccak_device as kd
+    from lambdaworks_cairo_prover_tpu_torch.prover import fri_tail as ft
+
+    regs = [v for k, v in ptxas_report(cuda_lib.build_info()["log"]).items()
+            if "fri_tail_kernel" in k]
+    require(len(regs) == 1, "fri_tail_kernel: not in the build's report")
+    log(f"[fri-tail] fri_tail_kernel: {regs[0]}")
+    rng = np.random.default_rng(SEED)
+    shapes = []
+    for lde_log in FRI_TAIL_LDE_LOGS:
+        layers = fri_tail_layers(lde_log)
+        n = len(layers)
+        coeffs = fd.to_mont(random_limbs(torch, rng, ((2 << n) - 3,), dev))
+        state, root = (torch.from_numpy(rng.integers(
+            -1 << 63, (1 << 63) - 1, (1, 4), dtype=np.int64)).to(dev)
+            for _ in range(2))
+        ft.fri_tail(coeffs, state, root, layers)  # builds its tables
+        before = ft.fri_tail_cuda.launches
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = ft.fri_tail(coeffs, state, root, layers)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        require(ft.fri_tail_cuda.launches == before + 1,
+                "fri_tail did not launch K4 once")
+        t0 = time.perf_counter()
+        want = ft.fri_tail_plain(coeffs.cpu(), state.cpu(), root.cpu(), layers)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        errs = {name: digest_err(torch, getattr(got, name).cpu(),
+                                 getattr(want, name))
+                for name in ("rows", "states", "levels")}
+        errs["evals"] = max_abs_err(torch, got.evals.cpu(), want.evals)
+        t0 = time.perf_counter()
+        last = host_fri_tail(fd.to_ints(coeffs), kd.digest_to_bytes(state[0]),
+                             kd.digest_to_bytes(root[0]), layers)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        errs["host_last_value"] = int(
+            int.from_bytes(got.rows[-1].cpu().numpy().tobytes(), "little")
+            != last)
+        ms = cuda_ms(torch, lambda: ft.fri_tail(coeffs, state, root, layers),
+                     FRI_TAIL_REPS)
+        # the same launch at every cluster size: each exact, each timed
+        clusters = {}
+        for size in FRI_TAIL_CLUSTERS:
+            try:
+                out = ft.fri_tail_cuda(coeffs, state, root, layers, size)
+                torch.cuda.synchronize()
+            except cuda_lib.KernelLaunchError as exc:
+                clusters[size] = f"refused: {exc}"
+                continue
+            err = max(digest_err(torch, getattr(out, name), getattr(got, name))
+                      for name in ("rows", "states", "levels"))
+            err = max(err, max_abs_err(torch, out.evals, got.evals))
+            require(err == 0, f"[fri-tail] LDE 2^{lde_log}: K4 over a "
+                    f"cluster of {size} differs from the plain version")
+            clusters[size] = cuda_ms(torch, lambda: ft.fri_tail_cuda(
+                coeffs, state, root, layers, size), FRI_TAIL_REPS)
+        n_bytes, ops = fri_tail_work(layers, per_perm)
+        b = bound(n_bytes, ops)
+        # the integer rate of the SMs the launch takes (132 on the card)
+        cluster_ms = ops / (INT32_OPS_PER_S * ft.CLUSTER / 132) * 1e3
+        rec = {"lde_log": lde_log, "layers": [ds for _, ds in layers],
+               "max_abs_err": max(errs.values()), "errs": errs, "ms": ms,
+               "plain_ms": plain_ms, "host_route_ms": host_ms,
+               "cluster_bound_ms": cluster_ms, "cluster": ft.CLUSTER,
+               "ms_by_cluster": clusters, **b}
+        shapes.append(rec)
+        log(f"[fri-tail] LDE 2^{lde_log}: {n} layers from {layers[0][1]} "
+            f"points, 2^{n + 1} coefficients in; errors {errs}; K4 {ms:.4f} "
+            f"ms a launch ({FRI_TAIL_REPS} launches, CUDA events), "
+            f"{bound_text({**b, 'ms': ms})}; the operations bound on the "
+            f"cluster's {ft.CLUSTER} SMs {cluster_ms:.4f} ms, share "
+            f"{cluster_ms / ms:.3f}; plain version "
+            f"on the CPU {plain_ms:.1f} ms; the host route (Python integers) "
+            f"{host_ms:.1f} ms; clusters of {ft.CLUSTER} blocks; ms a launch by "
+            f"blocks a cluster {clusters}")
+        require(rec["max_abs_err"] == 0, f"[fri-tail] LDE 2^{lde_log}: K4 "
+                f"differs from its plain version or the host route: {errs}")
+    top = shapes[-1]
+    return {"fri_tail": {**{k: top[k] for k in (
+        "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+        "bytes_ms", "operations_ms", "cluster_bound_ms", "host_route_ms")},
+        "library_ms": None, "registers": regs[0], "shapes": shapes}}
+
+
 def _fib(log_n: int, bench: bool, dev, verify_it: bool = True):
     from lambdaworks_cairo_prover_tpu_torch.air.examples.simple_fibonacci import (
         FibonacciAIR, FibonacciPublicInputs, fibonacci_trace)
@@ -1301,6 +1469,7 @@ def kernel_wrappers() -> dict:
     from lambdaworks_cairo_prover_tpu_torch.field import cuda_scan as cs
     from lambdaworks_cairo_prover_tpu_torch.hash import cuda_keccak as ck
     from lambdaworks_cairo_prover_tpu_torch.ntt import cuda_ntt as cn
+    from lambdaworks_cairo_prover_tpu_torch.prover import fri_tail as ft
 
     return {"mont_mul": cf.mont_mul, "add_sub_mod": cf.add_sub_mod,
             "ntt_dif_stages": cn.ntt_dif_stages,
@@ -1308,13 +1477,16 @@ def kernel_wrappers() -> dict:
             "keccak_rows": ck.keccak_rows, "keccak_pairs": ck.keccak_pairs,
             "keccak_grind": ck.keccak_grind,
             "mont_batch_inverse": cs.mont_batch_inverse,
-            "mont_prefix_product": cs.mont_prefix_product}
+            "mont_prefix_product": cs.mont_prefix_product,
+            "fri_tail": ft.fri_tail_cuda}
 
 
 # kernels that a path does not run: simple_fibonacci has no RAP trace, so
-# no prefix product (its DEEP and boundary inverses take H5)
+# no prefix product (its DEEP and boundary inverses take H5); the
+# domain-sharded kernels fold the FRI tail on the host (no K4)
 NOT_ON_PATH = {"full": {"mont_prefix_product"},
-               "scale": {"mont_prefix_product"}}
+               "scale": {"mont_prefix_product"},
+               "parallel": {"fri_tail"}}
 
 
 def reset_counts(torch) -> None:
@@ -1323,11 +1495,18 @@ def reset_counts(torch) -> None:
     torch.cuda.reset_peak_memory_stats()
     for w in kernel_wrappers().values():
         w.launches = 0
+    from lambdaworks_cairo_prover_tpu_torch.prover import prove as pv
+
+    pv._host_fri_layer.calls = 0
 
 
 def read_counts(tag: str) -> dict:
+    from lambdaworks_cairo_prover_tpu_torch.prover import prove as pv
+
     launches = {name: w.launches for name, w in kernel_wrappers().items()}
-    log(f"[{tag}] kernel launches on this path: {launches}")
+    log(f"[{tag}] kernel launches on this path: {launches}; FRI layers "
+        f"folded on the host since the count's reset: "
+        f"{pv._host_fri_layer.calls}")
     for name, count in launches.items():
         if name not in NOT_ON_PATH.get(tag, ()):
             require(count > 0, f"[{tag}] kernel {name} was not launched")
@@ -1464,17 +1643,22 @@ def phase_cairo_aux(torch, dev) -> None:
 
 
 def fri_routes(torch, dev, tag: str, res: dict, warm: dict) -> None:
-    """Both FRI commit routes on the trace of ``res`` (a cold Cairo prove)
-    after the warm prove ``warm`` (the chain route): a prove whose chain
-    runs under torch.cuda.set_sync_debug_mode("error") with every table
-    built, so that any host sync before the chain's one readback raises;
-    and a prove through the per-layer route (a DefaultTranscript subclass,
-    which the chain's gate sends there).  All proofs byte-equal."""
+    """The FRI commit routes on the trace of ``res`` (a cold Cairo prove)
+    after the warm prove ``warm`` (the chain route, with K4 for the layers
+    of 4,096 points or fewer): a prove whose chain and K4 run under
+    torch.cuda.set_sync_debug_mode("error") with every table built, so that
+    any host sync before the chain's one readback raises, with K4 launched
+    once and no FRI layer folded on the host; the chain with the host tail
+    (``supports_fri_tail`` off: ten layers on the host at these sizes); the
+    full chain (``_FULL_CHAIN_MAX_LOG`` past the LDE), the reference for
+    the launches it queues; and the per-layer route (a DefaultTranscript
+    subclass, which the chain's gate sends there).  All proofs byte-equal;
+    each route's round4_fri_commit, and the kernel launches of its prove."""
     from lambdaworks_cairo_prover_tpu_torch.cairo.air import CairoAIR
     from lambdaworks_cairo_prover_tpu_torch.proof.options import ProofOptions
     from lambdaworks_cairo_prover_tpu_torch.proof.serde import serialize_proof
     from lambdaworks_cairo_prover_tpu_torch.prover import kernels as pk
-    from lambdaworks_cairo_prover_tpu_torch.prover.prove import prove
+    from lambdaworks_cairo_prover_tpu_torch.prover import prove as pv
     from lambdaworks_cairo_prover_tpu_torch.transcript import DefaultTranscript
 
     class PerLayerTranscript(DefaultTranscript):
@@ -1494,28 +1678,65 @@ def fri_routes(torch, dev, tag: str, res: dict, warm: dict) -> None:
         chain_ms.append(ms)
         return out
 
+    def counted_prove(**kwargs):
+        """(proof, kernel launches, FRI layers folded on the host)."""
+        torch.cuda.synchronize()
+        before = {k: w.launches for k, w in kernel_wrappers().items()}
+        host0 = pv._host_fri_layer.calls
+        proof = pv.prove(res["trace"], res["pub"], options, CairoAIR,
+                         device=dev, **kwargs)
+        launches = {k: w.launches - before[k]
+                    for k, w in kernel_wrappers().items()}
+        return proof, launches, pv._host_fri_layer.calls - host0
+
     pk.ProverKernels.fri_commit_chain = guarded
     try:
-        guarded_proof = prove(res["trace"], res["pub"], options, CairoAIR,
-                              device=dev)
+        guarded_proof, tail_launches, tail_host = counted_prove()
     finally:
         pk.ProverKernels.fri_commit_chain = chain
     require(len(chain_ms) == 1, f"[{tag}] the prove did not take the chain")
-    layered = prove(res["trace"], res["pub"], options, CairoAIR, device=dev,
-                    transcript_factory=PerLayerTranscript)
-    require(serialize_proof(guarded_proof) == res["bytes"],
-            f"[{tag}] the proof under the sync check differs")
-    require(serialize_proof(layered) == res["bytes"],
-            f"[{tag}] the per-layer FRI route gives other proof bytes")
-    log(f"[{tag}] FRI chain under set_sync_debug_mode('error'): no host sync "
-        f"before its readback ({chain_ms[0]:.1f} ms queued and run); proofs "
-        f"of both routes byte-equal")
-    log(f"[{tag}] round4_fri_commit: chain route "
-        f"{warm['timings']['round4_fri_commit']:.4f} s "
-        f"(warm prove {warm['prove_s']:.3f} s), per-layer route "
+    require(tail_launches["fri_tail"] == 1 and tail_host == 0,
+            f"[{tag}] K4 launched {tail_launches['fri_tail']} times and "
+            f"{tail_host} FRI layers folded on the host (1 and 0 expected)")
+    pk.ProverKernels.supports_fri_tail = False
+    try:
+        host_tail, host_launches, host_layers = counted_prove()
+    finally:
+        pk.ProverKernels.supports_fri_tail = True
+    require(host_launches["fri_tail"] == 0 and host_layers == 10,
+            f"[{tag}] the host-tail route launched K4 "
+            f"{host_launches['fri_tail']} times and folded {host_layers} "
+            f"layers on the host (0 and 10 expected)")
+    full_log, pv._FULL_CHAIN_MAX_LOG = pv._FULL_CHAIN_MAX_LOG, 30
+    try:
+        full, full_launches, _ = counted_prove()
+    finally:
+        pv._FULL_CHAIN_MAX_LOG = full_log
+    layered = pv.prove(res["trace"], res["pub"], options, CairoAIR,
+                       device=dev, transcript_factory=PerLayerTranscript)
+    for name, proof in (("the proof under the sync check", guarded_proof),
+                        ("the host-tail route", host_tail),
+                        ("the full chain", full),
+                        ("the per-layer FRI route", layered)):
+        require(serialize_proof(proof) == res["bytes"],
+                f"[{tag}] {name} gives other proof bytes")
+    log(f"[{tag}] FRI chain and K4 under set_sync_debug_mode('error'): no "
+        f"host sync before the readback ({chain_ms[0]:.1f} ms queued and "
+        f"run); K4 launched once, no FRI layer on the host; the host-tail "
+        f"route folded {host_layers} layers on the host; proofs of all four "
+        f"routes byte-equal")
+    log(f"[{tag}] round4_fri_commit: chain + K4 "
+        f"{warm['timings']['round4_fri_commit']:.4f} s (warm prove "
+        f"{warm['prove_s']:.3f} s), under the sync check "
+        f"{guarded_proof._timings['round4_fri_commit']:.4f} s; chain + host "
+        f"tail {host_tail._timings['round4_fri_commit']:.4f} s; full chain "
+        f"{full._timings['round4_fri_commit']:.4f} s; per-layer route "
         f"{layered._timings['round4_fri_commit']:.4f} s (round4 "
-        f"{layered._timings['round4']:.3f} s); chain under the sync check "
-        f"{guarded_proof._timings['round4_fri_commit']:.4f} s")
+        f"{layered._timings['round4']:.3f} s)")
+    log(f"[{tag}] kernel launches a prove: chain + K4 "
+        f"{sum(tail_launches.values())} {tail_launches}; chain + host tail "
+        f"{sum(host_launches.values())}; full chain "
+        f"{sum(full_launches.values())} {full_launches}")
 
 
 # ProverKernels methods in which H1/H2 read the packed LDE, polynomials and
@@ -2547,6 +2768,10 @@ SOURCES = {
                            "lambdaworks_cairo_prover_tpu/field/device.py:405"),
     "mont_prefix_product": ("lambdaworks_cairo_prover_tpu_torch/csrc/scan.cu",
                             "lambdaworks_cairo_prover_tpu/field/device.py:458"),
+    # not Pallas: the host tail in Python integers (_host_fold :99,
+    # _host_evaluate_offset_fft :107, _HostMerkle :140)
+    "fri_tail": ("lambdaworks_cairo_prover_tpu_torch/csrc/fri_tail.cu",
+                 "lambdaworks_cairo_prover_tpu/prover/prove.py:99"),
 }
 
 
@@ -2579,6 +2804,8 @@ def main() -> int:
         kern = phase(phase_kernels, torch, dev)
         kern.update(phase(phase_keccak, torch, dev))
         kern.update(phase(phase_scan, torch, dev))
+        kern.update(phase(phase_fri_tail, torch, dev,
+                          kern["keccak_pairs"]["ops_per_permutation"]))
         phase(phase_fixtures, dev)
         launches_fib = phase(phase_full, torch, dev)
         phase(phase_cairo_fixture, dev)

@@ -27,8 +27,8 @@ import time
 PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
-SOURCES = ("field_ops.cu", "ntt.cu", "keccak.cu", "scan.cu")
-HEADERS = ("field.cuh",)
+SOURCES = ("field_ops.cu", "ntt.cu", "keccak.cu", "scan.cu", "fri_tail.cu")
+HEADERS = ("field.cuh", "keccak.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -48,6 +48,7 @@ _SIGNATURES = {
     "lcp_keccak_grind": [_U64, _U64, _U64, _U64, _U64, _LL, _U64, _P, _P],
     "lcp_batch_inverse": [_P, _P, _LL, _LL, _LL, _P, _P, _P],
     "lcp_prefix_product": [_P, _P, _LL, _LL, _P, _P],
+    "lcp_fri_tail": [_P, _LL, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
 }
 
 

@@ -111,6 +111,9 @@ class ShardedProverKernels(ProverKernels):
     over ``mesh``: every method takes and returns this rank's parts."""
 
     packed_tables = False
+    # the FRI layers past the chain fold on the host: K4 takes whole
+    # coefficients, and a rank holds a block of them
+    supports_fri_tail = False
 
     def __init__(self, air, domain, mesh, device, axis: str | None = None):
         # the mesh and the transforms must exist before ProverKernels
@@ -278,7 +281,7 @@ class ShardedProverKernels(ProverKernels):
                                           offset_int)
         return folded, evals, self._commit_single(evals, domain_size)
 
-    def _chain_tables(self, coeffs, plan) -> None:
+    def _chain_tables(self, coeffs, plan, tail=()) -> None:
         n = self.air.trace_length()
         self.sntt.powers(self.domain.coset_offset, n)
         for k, (off, _) in enumerate(plan, start=1):

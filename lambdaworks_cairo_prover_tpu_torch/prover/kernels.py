@@ -35,6 +35,7 @@ from ..hash import keccak_device as kd
 from ..hash.merkle import MerkleTree, fetch_tree, tree_levels
 from ..ntt import core as nttc
 from ..ntt import cuda_ntt as cn
+from . import fri_tail as ft
 
 
 # Chunk sizes, by the bytes of the transients that a chunk makes (32 B a
@@ -56,8 +57,11 @@ def _env_chunk(name: str) -> int | None:
 class ProverKernels:
     """Domain tables and round computations for one (air, domain, device)."""
 
-    # fri_commit_chain: prove() may derive the FRI zetas on the device
+    # fri_commit_chain: prove() may derive the FRI zetas on the device, and
+    # with a tail (K4) commit the layers of 2^ft.MAX_LOG points or fewer and
+    # make the final fold there too
     supports_fri_chain = True
+    supports_fri_tail = True
     # the domain tables are kept as (8, N) packed words, which H1/H2 read in
     # place; the sharded kernels keep theirs as limbs (a rank's share is
     # already N/D points)
@@ -466,12 +470,12 @@ class ProverKernels:
         leaves = kd.hash_felt_leaves(fd.from_mont(evals))
         return folded, evals, tree_levels(leaves)
 
-    def _chain_tables(self, coeffs: torch.Tensor, plan) -> None:
-        """Build every table the chain reads (offset powers, twiddles, field
-        constants) on the device of ``coeffs``, so that queueing the chain
-        copies nothing from the host and so never waits for the device.
-        Keccak needs none: K1 and K2 take their constants from the kernel,
-        and the plain version's tables serve CPU tensors only."""
+    def _chain_tables(self, coeffs: torch.Tensor, plan, tail=()) -> None:
+        """Build every table the chain and K4 read (offset powers, twiddles,
+        field constants) on the device of ``coeffs``, so that queueing the
+        chain copies nothing from the host and so never waits for the
+        device.  Keccak needs none: K1 and K2 take their constants from the
+        kernel, and the plain version's tables serve CPU tensors only."""
         dev, domain, n_coeffs = coeffs.device, self.domain, coeffs.shape[-1]
         nttc.offset_powers(domain.coset_offset, n_coeffs, dev)
         for k, (off, _) in enumerate(plan, start=1):
@@ -479,10 +483,13 @@ class ProverKernels:
         if dev.type == "cuda":
             cn.packed_twiddle_table(domain.lde_size.bit_length() - 1, False,
                                     dev)
+            if tail:
+                ft.tail_powers(tail, dev)
         fd.constant(1, mont=False, device=dev)
         fd.constant(R2, mont=False, device=dev)
 
-    def fri_commit_chain(self, coeffs, state, plan, final_fold=False):
+    def fri_commit_chain(self, coeffs, state, plan, final_fold=False,
+                         tail=()):
         """The device part of the FRI commit phase, queued without a host
         round trip (the JAX package's ``fri_commit_chain``): the first
         layer's LDE and commit, then for each (offset, domain size) of
@@ -490,36 +497,37 @@ class ProverKernels:
         keccak256(state || root), zeta = the 251-bit-masked state, as
         transcript/fiat_shamir.py draws it), the fold, its LDE and commit.
         With ``final_fold`` one more draw and the protocol's last fold.
+        With ``tail``, the (offset, domain size) of every layer after
+        ``plan``'s, K4 (:func:`.fri_tail.fri_tail`) commits those layers and
+        makes the last fold, in the same queue.
 
         coeffs: (16, n) DEEP coefficients; state: (1, 4) int64 lanes of the
         transcript's 32-byte state.  Returns (rows, evals, levels, coeffs):
         rows is one (L + 1, 4) int64 tensor of the layer roots, plus, with
         ``final_fold``, a last row holding the 32-byte little-endian
         encoding of the folded constant (canonical, not Montgomery); the
-        caller reads it back once.  Stark252 only."""
-        self._chain_tables(coeffs, plan)
+        caller reads it back once.  With ``tail``, rows goes on with the
+        tail's roots and that last row, and the fourth item is the
+        :class:`.fri_tail.FriTail` in place of the coefficients.  Stark252
+        only."""
+        self._chain_tables(coeffs, plan, tail)
         evals, levels = self.fri_first_layer(coeffs)
         rows = [levels[-1]]
         evals_out, levels_out = [evals], [levels]
-
-        def draw(state):
-            state = kd.hash_digest_pairs(torch.cat([state, rows[-1]]))
-            return state, fd.to_mont(kd.digest_words_to_masked_limbs(state[0]))
-
         for off, ds in plan:
-            state, zeta = draw(state)
+            state, zeta = ft.draw(state, rows[-1])
             coeffs, evals, levels = self.fri_fold_layer(coeffs, zeta, off, ds)
             rows.append(levels[-1])
             evals_out.append(evals)
             levels_out.append(levels)
+        if tail:
+            done = ft.fri_tail(coeffs, state, rows[-1], tail)
+            rows.append(done.rows)
+            return torch.cat(rows), evals_out, levels_out, done
         if final_fold:
-            _, zeta = draw(state)
-            last = fd.from_mont(self._fold(coeffs, zeta, 2))
-            # 16 limbs of 16 bits -> 4 lanes of 64 (p < 2^252: no sign bit)
-            shifts = torch.arange(0, 64, 16, dtype=torch.int64,
-                                  device=coeffs.device)
-            lanes = (last.to(torch.int64).reshape(4, 4) << shifts).sum(1)
-            rows.append(lanes[None])
+            _, zeta = ft.draw(state, rows[-1])
+            rows.append(ft.value_lanes(fd.from_mont(
+                self._fold(coeffs, zeta, 2))))
         return torch.cat(rows), evals_out, levels_out, coeffs
 
 

@@ -30,6 +30,7 @@ from ..transcript import (
     transcript_to_field,
     transcript_to_usize,
 )
+from . import fri_tail as ft
 from .domain import Domain
 from .grinding import generate_nonce_with_grinding
 from .kernels import get_kernels
@@ -44,6 +45,20 @@ _HOST_FRI_THRESHOLD = 4096  # fold FRI layers of this size or less on host
 # device chain (fri_last_value rides the roots readback, no host tail); the
 # JAX package's variable and default, so that both take the same route
 _FULL_CHAIN_MAX_LOG = int(os.environ.get("LCP_FULL_FRI_CHAIN_MAX_LOG", "16"))
+
+
+def _host_fri_layer(coeffs: list[int], zeta: int, offset: int,
+                    domain_size: int) -> tuple:
+    """One FRI layer on the host: the fold, its evaluations on the layer's
+    coset and their Merkle tree.  ``calls`` counts the layers."""
+    _host_fri_layer.calls += 1
+    coeffs = _host_fold(coeffs, zeta)
+    evals = _host_evaluate_offset_fft(coeffs, domain_size, offset)
+    tree = _HostMerkle(keccak256_batch([fh.to_bytes_be(v) for v in evals]))
+    return coeffs, evals, tree
+
+
+_host_fri_layer.calls = 0
 
 
 def _host_fold(coeffs: list[int], zeta: int) -> list[int]:
@@ -114,29 +129,34 @@ class _HostMerkle:
 
 def _fri_commit(kern, domain: Domain, deep_coeffs: torch.Tensor, transcript,
                 device) -> tuple:
-    """The FRI layers [(evaluations, tree, domain size)] and the last value.
+    """The FRI layers [(evaluations, tree, domain size)], the last value and
+    the :class:`~.fri_tail.FriTail` that holds the last layers (None when K4
+    did not run).
 
     The layers whose halved domain stays above _HOST_FRI_THRESHOLD (all of
     them, and the final fold, when the LDE domain is at most
     2^_FULL_CHAIN_MAX_LOG points) go through ``kern.fri_commit_chain``,
-    which derives their zetas on the device, and their roots come back in
-    one copy; the host transcript replays each draw.  The rest fold layer
+    which derives their zetas on the device; where the kernels support it
+    (``supports_fri_tail``), the rest and the final fold follow in the same
+    queue (K4, :mod:`.fri_tail`), and every root comes back in one copy;
+    the host transcript replays each draw.  Otherwise the rest fold layer
     by layer, with the zeta drawn on the host after each root: all layers
     where the chain's rule may not hold (a transcript of another type, a
     field other than the 252-bit one) and the tail below the threshold,
-    which folds on the host.  The JAX package takes the same routes
-    (prover/prove.py), and either gives the same bytes."""
+    which folds on the host (:func:`_host_fri_layer`).  The JAX package
+    takes the chain and host routes (prover/prove.py), and every route
+    gives the same bytes."""
     N = domain.lde_size
     number_layers = domain.root_order
     full_chain = N <= 1 << _FULL_CHAIN_MAX_LOG
-    plan = []
+    layers = []  # (offset, domain size) of each layer after the first
     off_p, ds_p = domain.coset_offset, N
     for _ in range(1, number_layers):
         off_p = off_p * off_p % P
         ds_p //= 2
-        if not full_chain and ds_p <= _HOST_FRI_THRESHOLD:
-            break
-        plan.append((off_p, ds_p))
+        layers.append((off_p, ds_p))
+    plan = layers if full_chain else [
+        layer for layer in layers if layer[1] > _HOST_FRI_THRESHOLD]
     buf = getattr(transcript, "_buf", None)
     # exact type: a DefaultTranscript subclass may change the append and
     # challenge rule that the chain hard-codes; the chain's draw masks to the
@@ -145,6 +165,10 @@ def _fri_commit(kern, domain: Domain, deep_coeffs: torch.Tensor, transcript,
                  and buf is not None and len(buf) == 32
                  and FIELD_BIT_SIZE == 252 and kern.supports_fri_chain)
     full_chain = full_chain and use_chain and len(plan) == number_layers - 1
+    tail = layers[len(plan):]
+    if not (use_chain and tail and kern.supports_fri_tail
+            and tail[0][1] <= 1 << ft.MAX_LOG):
+        tail = []
 
     fri_layers = []
     coeffs = deep_coeffs
@@ -153,8 +177,9 @@ def _fri_commit(kern, domain: Domain, deep_coeffs: torch.Tensor, transcript,
     if use_chain:
         state = torch.from_numpy(
             np.frombuffer(bytes(buf), dtype="<i8").copy()).to(device)[None]
-        rows_dev, evals_l, levels_l, coeffs = kern.fri_commit_chain(
-            deep_coeffs, state, plan, final_fold=full_chain)
+        # rest: the chain's last folded coefficients, or K4's FriTail
+        rows_dev, evals_l, levels_l, rest = kern.fri_commit_chain(
+            deep_coeffs, state, plan, final_fold=full_chain, tail=tail)
         rows = rows_dev.cpu().numpy()  # the one readback of the chain
         for i, (evals, levels) in enumerate(zip(evals_l, levels_l)):
             if i > 0:
@@ -164,13 +189,20 @@ def _fri_commit(kern, domain: Domain, deep_coeffs: torch.Tensor, transcript,
             tree._root_bytes = kd.digest_to_bytes(rows[i])
             fri_layers.append((evals, tree, domain_size))
             transcript.append(tree.root)
-        offset_int, domain_size = plan[-1]
-        n_coeffs >>= len(plan)
-        if full_chain:
+        for k, (_, ds) in enumerate(tail):
+            transcript_to_field(transcript)  # K4 drew this zeta
+            tree = kern.tree(rest.layer_levels(k))
+            tree._root_bytes = kd.digest_to_bytes(rows[len(plan) + 1 + k])
+            fri_layers.append((rest.layer_evals(k), tree, ds))
+            transcript.append(tree.root)
+        if full_chain or tail:
             transcript_to_field(transcript)  # the final fold's zeta
             fri_last_value = int.from_bytes(rows[-1].tobytes(), "little")
             transcript.append(fh.to_bytes_be(fri_last_value))
-            return fri_layers, fri_last_value
+            return fri_layers, fri_last_value, rest if tail else None
+        coeffs = rest
+        offset_int, domain_size = plan[-1]
+        n_coeffs >>= len(plan)
     else:
         evals0, levels0 = kern.fri_first_layer(deep_coeffs)
         tree0 = kern.tree(levels0)
@@ -185,11 +217,8 @@ def _fri_commit(kern, domain: Domain, deep_coeffs: torch.Tensor, transcript,
         if host_coeffs is None and domain_size <= _HOST_FRI_THRESHOLD:
             host_coeffs = kern.coeffs_to_ints(coeffs, n_coeffs)
         if host_coeffs is not None:
-            host_coeffs = _host_fold(host_coeffs, zeta)
-            evals = _host_evaluate_offset_fft(host_coeffs, domain_size,
-                                              offset_int)
-            tree = _HostMerkle(keccak256_batch(
-                [fh.to_bytes_be(v) for v in evals]))
+            host_coeffs, evals, tree = _host_fri_layer(
+                host_coeffs, zeta, offset_int, domain_size)
         else:
             coeffs, evals, levels = kern.fri_fold_layer(
                 coeffs, fd.from_int(zeta, device=device), offset_int,
@@ -206,7 +235,7 @@ def _fri_commit(kern, domain: Domain, deep_coeffs: torch.Tensor, transcript,
     folded_host = _host_fold(last_coeffs, zeta)
     fri_last_value = folded_host[0] if folded_host else 0
     transcript.append(fh.to_bytes_be(fri_last_value))
-    return fri_layers, fri_last_value
+    return fri_layers, fri_last_value, None
 
 
 def _mem(tag: str, device=None) -> None:
@@ -506,8 +535,8 @@ def prove(
 
     # FRI commit phase (reference fri/mod.rs:20-72)
     t4b = time.perf_counter()
-    fri_layers, fri_last_value = _fri_commit(kern, domain, deep_coeffs,
-                                             transcript, device)
+    fri_layers, fri_last_value, fri_tail = _fri_commit(
+        kern, domain, deep_coeffs, transcript, device)
     _sync(device)
     timings["round4_fri_commit"] = time.perf_counter() - t4b
     _mem("round4: FRI committed", device)
@@ -532,36 +561,59 @@ def prove(
 
     # Every device-side opening (FRI layer values at iota/iota_sym, H1/H2
     # and trace-row values) and every Merkle sibling of every device tree
-    # is gathered on the device and copied to the host once.
+    # is gathered on the device and copied to the host once.  A queued part
+    # may hold several spans, each read back apart (limbs_at, tree_paths).
     limb_parts, limb_off = [], [0]
     dig_parts, dig_off, dig_levels = [], [0], []
 
-    def queue_limbs(src: torch.Tensor, idxs: list[int], length: int) -> int:
-        part = kern.gather_points(src, idxs, length).reshape(N_LIMBS, -1)
+    def queue_limbs(part: torch.Tensor, widths: list[int]) -> int:
+        """Queue (16, sum(widths)) limbs; the position of the first span."""
         limb_parts.append(part)
-        limb_off.append(limb_off[-1] + part.shape[1])
-        return len(limb_parts) - 1
+        for w in widths:
+            limb_off.append(limb_off[-1] + w)
+        return len(limb_off) - 1 - len(widths)
+
+    def queue_digests(part: torch.Tensor, levels: list[int], k: int) -> int:
+        """Queue the siblings of trees of ``levels`` levels at k points
+        each; the position of the first tree."""
+        dig_parts.append(part)
+        for n_levels in levels:
+            dig_off.append(dig_off[-1] + n_levels * k)
+            dig_levels.append(n_levels)
+        return len(dig_levels) - len(levels)
+
+    def queue_points(src: torch.Tensor, idxs: list[int], length: int) -> int:
+        part = kern.gather_points(src, idxs, length).reshape(N_LIMBS, -1)
+        return queue_limbs(part, [part.shape[1]])
 
     def queue_tree(tree: MerkleTree, idxs: list[int]) -> int:
-        part = tree.gather_siblings(idxs)
-        dig_parts.append(part)
-        dig_off.append(dig_off[-1] + part.shape[0])
-        dig_levels.append(len(tree.levels) - 1)
-        return len(dig_parts) - 1
+        return queue_digests(tree.gather_siblings(idxs),
+                             [len(tree.levels) - 1], len(idxs))
 
+    def both_idx(ds: int) -> list[int]:
+        return ([iota % ds for iota in iotas]
+                + [(iota + ds // 2) % ds for iota in iotas])
+
+    n_tail = len(fri_tail.sizes) if fri_tail is not None else 0
     layer_plans = []
-    for evals, tree, ds in fri_layers:
-        both_idx = ([iota % ds for iota in iotas]
-                    + [(iota + ds // 2) % ds for iota in iotas])
+    for evals, tree, ds in fri_layers[:len(fri_layers) - n_tail]:
+        idx = both_idx(ds)
         if isinstance(evals, list):  # host-tail layer
-            layer_plans.append(("host", [evals[i] for i in both_idx],
-                                tree.get_proofs(both_idx)))
+            layer_plans.append(("host", [evals[i] for i in idx],
+                                tree.get_proofs(idx)))
         else:
-            layer_plans.append(("dev", queue_limbs(evals, both_idx, ds),
-                                queue_tree(tree, both_idx)))
-    h1_pos = queue_limbs(h1_lde, open_idxs, N)
-    h2_pos = queue_limbs(h2_lde, open_idxs, N)
-    rows_pos = queue_limbs(lde_evals, open_idxs, N)  # (16, cols * nq), col-major
+            layer_plans.append(("dev", queue_points(evals, idx, ds),
+                                queue_tree(tree, idx)))
+    if n_tail:  # K4's layers: one gather of values, one of siblings
+        values, siblings = fri_tail.gather(
+            [both_idx(ds) for ds in fri_tail.sizes])
+        lpos = queue_limbs(values, [2 * nq] * n_tail)
+        tpos = queue_digests(siblings, [ds.bit_length() - 1
+                                        for ds in fri_tail.sizes], 2 * nq)
+        layer_plans += [("dev", lpos + k, tpos + k) for k in range(n_tail)]
+    h1_pos = queue_points(h1_lde, open_idxs, N)
+    h2_pos = queue_points(h2_lde, open_idxs, N)
+    rows_pos = queue_points(lde_evals, open_idxs, N)  # (16, cols * nq), col-major
     comp_pos = queue_tree(composition_tree, open_idxs)
     trace_pos = [queue_tree(t, open_idxs) for t in lde_trace_merkle_trees]
 

@@ -75,6 +75,7 @@ GROUPS = (
     ("keccak_rows_kernel", "K1 keccak_rows"),
     ("keccak_pairs_kernel", "K2 keccak_pairs"),
     ("keccak_grind_kernel", "K3 keccak_grind"),
+    ("fri_tail_kernel", "K4 fri_tail"),
     ("mont_mul_kernel", "H1 mont_mul"),
     ("add_sub_kernel", "H2 add_sub_mod"),
     ("ntt_dif_stages_kernel", "H3 ntt_dif_stages"),
@@ -205,6 +206,12 @@ def main() -> int:
                 "K3 keccak_grind": ck.keccak_grind,
                 "H5 mont_batch_inverse": cs.mont_batch_inverse,
                 "H6 mont_prefix_product": cs.mont_prefix_product}
+    try:  # K4: absent in a checkout from before it (--root)
+        from lambdaworks_cairo_prover_tpu_torch.prover import fri_tail as ft
+
+        wrappers["K4 fri_tail"] = ft.fri_tail_cuda
+    except ImportError:
+        pass
 
     # the layout passes that the prove asks for (counted since the packed
     # H1/H2; None in a checkout from before)
