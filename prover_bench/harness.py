@@ -6,7 +6,9 @@ Everything that belongs to one configuration, traffic mix or metric is a
 file found by its name: `configs/<config>.json`, `traffic/<traffic>.json`
 (and an optional `traffic/<traffic>.py` with a `window(ctx)` of its own),
 `metrics/<metric>.py` (a `read(run)` that returns a number or None).  The
-cell's entry in `BENCHMARK.json` says which metrics it reports."""
+cell's entry in `BENCHMARK.json` says which metrics it reports.  A cell
+whose `chips` is D > 1 runs as D ranks, one process a card (`ranks.py`);
+its configuration states the `shard_axis` they prove over."""
 
 from __future__ import annotations
 
@@ -19,11 +21,14 @@ import time
 from pathlib import Path
 from types import SimpleNamespace
 
+import ranks
 import reference
 import tracing
 
 BENCH_DIR = Path(__file__).resolve().parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "lambdaworks_cairo_prover_tpu")
+# how a configuration on D > 1 cards shards: `prove(..., shard_axis=...)`
+SHARD_AXES = ("domain", "columns")
 
 
 class BenchError(Exception):
@@ -53,6 +58,10 @@ def resolve(manifest: dict, workload: str, bench_dir: Path = BENCH_DIR):
     configs = {c["name"]: c for c in manifest["configs"]}
     config_entry = configs[cell["config"]]
     config = json.loads((bench_dir.parent / config_entry["file"]).read_text())
+    if cell["chips"] > 1 and config.get("shard_axis") not in SHARD_AXES:
+        raise BenchError(f"{workload!r} runs on {cell['chips']} cards: its "
+                         f"configuration states no shard_axis of "
+                         f"{SHARD_AXES}")
     traffic_path = bench_dir / "traffic" / f"{cell['traffic']}.json"
     traffic = json.loads(traffic_path.read_text())
     loop_path = traffic_path.with_suffix(".py")
@@ -125,9 +134,12 @@ def _card_facts() -> dict:
 
 def run(workload: str, seed: int, seconds: float, trace: bool, *,
         t_start: float, manifest_path: Path, device: str = "cuda",
-        bench_dir: Path = BENCH_DIR) -> tuple[dict, list[str]]:
+        bench_dir: Path = BENCH_DIR, rank_command=None
+        ) -> tuple[dict, list[str]]:
     """Set up, measure and check one cell; returns the result object and
-    the lines of checks for standard error."""
+    the lines of checks for standard error.  A cell on one card runs in
+    this process; one on D > 1 cards runs as D ranks (`ranks.launch`,
+    which starts each with ``rank_command``, by default this run.py)."""
     import torch
 
     cell = resolve(json.loads(manifest_path.read_text()), workload, bench_dir)
@@ -142,6 +154,24 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *,
         dev = torch.device("cuda", 0)
     else:
         dev = torch.device(device)
+    if chips > 1:
+        return ranks.launch(cell, seed, seconds, trace, t_start=t_start,
+                            device=device, bench_dir=bench_dir,
+                            rank_command=rank_command)
+    return measure(cell, seed, seconds, trace, t_start=t_start, dev=dev)
+
+
+def measure(cell, seed: int, seconds: float, trace: bool, *, t_start: float,
+            dev, team=None):
+    """The cell's set-up, window and check on ``dev``.  With ``team`` (a
+    `ranks.Team`) this process is one of the cell's ranks: every rank proves
+    each job together over the mesh, rank 0 leads the window, profiles the
+    layers and returns the result; the other ranks return None."""
+    import torch
+
+    chips = cell.entry["chips"]
+    lead = team is None or team.rank == 0
+    prove_kwargs = team.prove_kwargs if team is not None else {}
 
     from lambdaworks_cairo_prover_tpu_torch.cairo.air import CairoAIR
     from lambdaworks_cairo_prover_tpu_torch.cairo.runner import (
@@ -174,7 +204,7 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *,
         tr = traces[k]
         with tracing.maybe_range(rec, "bench.prove"):
             proof = prove_mod.prove(tr.trace, tr.pub, options, CairoAIR,
-                                    device=dev)
+                                    device=dev, **prove_kwargs)
         with tracing.maybe_range(rec, "bench.serialize"):
             return serialize_proof(proof), proof._timings
 
@@ -192,7 +222,8 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *,
     recording = contextlib.ExitStack()
 
     def start_recording():
-        recording.enter_context(tracing.instrumented(rec))
+        if lead:
+            recording.enter_context(tracing.instrumented(rec))
         ctx.recording = recording.enter_context(
             tracing.profiled(dev.type == "cuda"))
         rec.on = True
@@ -211,6 +242,9 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *,
             with tracing.maybe_range(rec, "bench.job"):
                 data, timings = job(k)
         except Exception as e:  # a failed job is counted, and ends the window
+            if team is not None:  # the others would wait in a collective
+                raise BenchError(f"job {len(jobs)} (n = {traces[k].n}): "
+                                 f"{type(e).__name__}: {e}") from e
             errors.append(f"job {len(jobs)} (n = {traces[k].n}): "
                           f"{type(e).__name__}: {e}")
             jobs.append(SimpleNamespace(trace=k, start=start,
@@ -225,26 +259,66 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *,
                                     timings=timings, recorded=rec.on))
         return True
 
-    ctx.run_job, ctx.stop_recording = run_job, stop_recording
+    def announced_job(k) -> bool:  # rank 0 of several: the others follow
+        team.tell(k, rec.on)
+        return run_job(k)
+
+    ctx.run_job = announced_job if team is not None and lead else run_job
+    ctx.stop_recording, ctx.recording_on = stop_recording, lambda: rec.on
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     if trace:
         start_recording()
     ctx.window_start = window_start = time.perf_counter()
     try:
-        (cell.loop or closed_loop)(ctx)
+        if not lead:
+            ranks.follow(ctx, team)
+        else:
+            (cell.loop or closed_loop)(ctx)
+            if team is not None:
+                team.tell(ranks.STOP, False)
     finally:
         stop_recording()
     window_end = jobs[-1].end if jobs else time.perf_counter()
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
 
     profile = None
-    if trace:
+    if trace and lead:
         missed = tracing.unhit_entries(rec)
         if missed:
             raise BenchError(f"the traced run never went through {missed}: "
                              f"a binding the wrappers did not reach")
         profile = tracing.reduce_trace(ctx.recording.events, rec)
+
+    divergent = rank_lines = None
+    if team is not None:
+        own = {"jobs": len(jobs), "peak_bytes": peak,
+               "digests": ranks.job_digests(jobs, proofs)}
+        if trace:
+            busy = profile or tracing.reduce_trace(ctx.recording.events, rec)
+            own.update(busy_s=busy["busy_s"], window_s=busy["window_s"])
+        everyone = team.gather(own)
+        team.close()
+        if not lead:
+            return None
+        peak = max(o["peak_bytes"] for o in everyone)
+        divergent = ranks.divergent_jobs([o["digests"] for o in everyone])
+        if profile is not None:  # the contract's busy time: the cards' mean
+            profile["busy_s"] = sum(o["busy_s"] for o in everyone) / len(
+                everyone)
+            profile["window_s"] = sum(o["window_s"] for o in everyone) / len(
+                everyone)
+        rank_lines = [
+            f"rank {r}: {o['jobs']} jobs, peak {o['peak_bytes']} B "
+            f"({o['peak_bytes'] / 2**30:.4f} GiB)" + (
+                f", device busy {o['busy_s']:.4f} s of {o['window_s']:.4f} s "
+                f"recorded" if trace else "")
+            for r, o in enumerate(everyone)]
+        shas = [set() for _ in traces]
+        for j, d in zip(jobs, own["digests"]):
+            shas[j.trace].add(d)
+        rank_lines += [f"proof sha256, n = {t.n}: {' '.join(sorted(s))}"
+                       for t, s in zip(traces, shas) if s]
 
     run_record = SimpleNamespace(
         jobs=jobs, proofs=proofs, window_s=window_end - window_start,
@@ -256,7 +330,8 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *,
     del traces, ctx
     if dev.type == "cuda":
         torch.cuda.empty_cache()
-    checks, failed, log = check_proofs(run_record, cfg, sizes, opts)
+    checks, failed, log = check_proofs(run_record, cfg, sizes, opts,
+                                       divergent)
     log = errors + log
 
     metrics = {}
@@ -273,19 +348,25 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *,
     if profile is not None:
         result["breakdown"] = profile["breakdown"]
         result["recorded_jobs"] = profile["jobs"]
+    if team is not None:
+        result["ranks"] = [{"rank": r, "jobs": o["jobs"],
+                            "memory_peak_bytes": o["peak_bytes"]}
+                           for r, o in enumerate(everyone)]
     result["checks"] = checks
-    lines = log + [build_line()] + latency_lines(run_record) + [
+    lines = log + (rank_lines if team is not None else [build_line()]) + (
+        latency_lines(run_record)) + [
         f"check {k}: {c['value']} (limit {c['limit']})"
         for k, c in checks.items()]
     return result, lines
 
 
-def build_line() -> str:
+def build_line(info=None) -> str:
     """Whether this run built the kernels, and the seconds the build took
-    (counted in `setup_s`: the first run in a checkout builds)."""
+    (counted in `setup_s`: the first run in a checkout builds); ``info`` is
+    a `cuda_lib.build()`, by default the one the loaded library came from."""
     from lambdaworks_cairo_prover_tpu_torch import cuda_lib
 
-    info = cuda_lib.build_info()
+    info = cuda_lib.build_info() if info is None else info
     if not info:
         return "kernel build: no kernel library loaded"
     if info["compiled"]:
@@ -322,16 +403,18 @@ def device_facts(dev, chips, peak, profile) -> dict:
     return facts
 
 
-def check_proofs(run_record, cfg, sizes, opts):
+def check_proofs(run_record, cfg, sizes, opts, divergent=None):
     """Every job's proof against the reference: each distinct proof of each
     trace is verified once, against the statement that the reference works
     out from the program itself.  Returns the numbers compared, the jobs
-    that failed, and a line for each rejected proof."""
+    that failed, and a line for each rejected proof.  With ``divergent``
+    (the indices of the jobs whose proof differed between ranks) the
+    numbers add `divergent_ranks`, and those jobs count as failed."""
     options = reference.Options(**opts)
     statements = [reference.statement(cfg["program"], n) for n in sizes]
     verdicts, log = {}, []
-    rejected = failed_jobs = 0
-    for j in run_record.jobs:
+    rejected = failed_jobs = other_failed = 0
+    for i, j in enumerate(run_record.jobs):
         if j.proof is None:
             failed_jobs += 1
             continue
@@ -345,6 +428,12 @@ def check_proofs(run_record, cfg, sizes, opts):
                            f"{verdicts[key]}")
         if verdicts[key] is not None:
             rejected += 1
+        elif divergent and i in divergent:
+            other_failed += 1
     checks = {"rejected_proofs": {"value": rejected, "limit": 0},
               "failed_jobs": {"value": failed_jobs, "limit": 0}}
-    return checks, rejected + failed_jobs, log
+    if divergent is not None:
+        checks["divergent_ranks"] = {"value": len(divergent), "limit": 0}
+        log += [f"divergent: job {i}'s proof differs between the ranks"
+                for i in sorted(divergent)]
+    return checks, rejected + failed_jobs + other_failed, log

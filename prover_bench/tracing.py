@@ -44,6 +44,10 @@ LAYER_ENTRIES = [
                                                        n_cols)),
 ]
 LAYERS = ("field", "ntt", "hash")
+# The sharded prove of a cell on D > 1 cards reaches every entry too, in
+# either layout (its four-step rows go through `transform`, its subtrees
+# through `tree_levels`): rank 0 of such a cell is held to all of them
+# (test_bench_ranks.py holds a gloo run to that).
 
 # ranges that only name what the host is doing (for the idle gaps)
 CONTEXT_FUNCTIONS = [
